@@ -1,0 +1,138 @@
+"""Motion-only pose optimization (the per-frame hot solve).
+
+Port of structure_plp_slam_tpu/models/pose_opt.py (reference g2o
+motion-only BA, pose_optimizer.cc:53-: 4 trials x 10 LM iterations, chi2
+re-classification between trials at 5.991 mono / 7.815 stereo, Huber
+kernel). The solve is batched over a leading dimension: where the JAX
+tracker ``vmap``s three association strategies through one solve, the
+port passes them as a batch of 3 (each with its own LM damping and step
+acceptance).
+
+Analytic Jacobians (left-multiplicative se(3) update, translation first):
+  pc = R @ X + t;  d(pc)/d(xi) = [ I_3 | -hat(pc) ]
+  mono residual r = project(pc) - uv_obs, stereo adds x_right.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from structure_plp_slam_tpu_torch.camera import base as cam_base
+from structure_plp_slam_tpu_torch.ops import lie, robust
+from structure_plp_slam_tpu_torch.ops import linalg as linalg_ops
+from structure_plp_slam_tpu_torch.utils.types import rdiv
+
+
+class PoseOptResult(NamedTuple):
+    R: torch.Tensor            # [(B,) 3, 3]
+    t: torch.Tensor            # [(B,) 3]
+    inliers: torch.Tensor      # [(B,) N] bool
+    num_inliers: torch.Tensor  # [(B,)] i64
+    chi2: torch.Tensor         # [(B,)] f32 total weighted error over inliers
+
+
+def _safe_z(z):
+    return torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+
+
+def _residuals(camera, R, t, points_w, obs_uv, obs_xr):
+    """Batched residuals: R [B,3,3], t [B,3], points_w [B,N,3]."""
+    pc = points_w @ R.transpose(-1, -2) + t[:, None, :]
+    uv, _ = cam_base.project(camera, pc)
+    r_uv = cam_base.uv_residual(camera, uv, obs_uv)
+    xr = uv[..., 0] - rdiv(camera.focal_x_baseline, _safe_z(pc[..., 2]))
+    return pc, r_uv, xr - obs_xr
+
+
+def optimize_pose(camera, R0, t0, points_w, obs_uv, obs_xr, inv_sigma_sq, valid, *,
+                  num_trials: int = 4, num_iters: int = 10) -> PoseOptResult:
+    """Optimize world->camera poses against fixed landmarks.
+
+    ``points_w [N, 3]`` / ``valid [N]`` solve one pose; ``[B, N, 3]`` /
+    ``[B, N]`` solve B poses at once (``R0``/``t0`` broadcast). ``obs_uv
+    [N, 2]``, ``obs_xr [N]`` (< 0: mono) and ``inv_sigma_sq [N]`` are
+    shared by the batch."""
+    batched = points_w.ndim == 3
+    if not batched:
+        points_w, valid = points_w[None], valid[None]
+    B = points_w.shape[0]
+    R = R0.expand(B, 3, 3) if R0.ndim == 2 else R0
+    t = t0.expand(B, 3) if t0.ndim == 1 else t0
+    has_stereo = obs_xr >= 0.0
+    delta_sq = torch.where(has_stereo, robust.CHI2_3D, robust.CHI2_2D).to(points_w.dtype)
+    zero = torch.zeros((), dtype=points_w.dtype, device=points_w.device)
+
+    def chi2_of(r_uv, r_xr):
+        return robust.chi2_2d(r_uv, inv_sigma_sq) + torch.where(
+            has_stereo, r_xr * r_xr * inv_sigma_sq, zero
+        )
+
+    def robust_cost(R, t, inlier):
+        _, r_uv, r_xr = _residuals(camera, R, t, points_w, obs_uv, obs_xr)
+        chi2 = chi2_of(r_uv, r_xr)
+        rho = torch.where(
+            chi2 <= delta_sq,
+            chi2,
+            2.0 * torch.sqrt(delta_sq * torch.clamp(chi2, min=1e-12)) - delta_sq,
+        )
+        return torch.sum(torch.where(valid & inlier, rho, zero), dim=-1)
+
+    eye = torch.eye(3, dtype=points_w.dtype, device=points_w.device)
+    inlier = valid
+    for _ in range(num_trials):
+        lam = torch.full((B,), 1e-3, dtype=points_w.dtype, device=points_w.device)
+        cost = robust_cost(R, t, inlier)
+        for _ in range(num_iters):
+            pc, r_uv, r_xr = _residuals(camera, R, t, points_w, obs_uv, obs_xr)
+            chi2 = chi2_of(r_uv, r_xr)
+            w_huber = robust.huber_weight(chi2, delta_sq)
+            w = torch.where(valid & inlier, w_huber * inv_sigma_sq, zero)  # [B, N]
+
+            J_uv = cam_base.project_jacobian(camera, pc)  # [B, N, 2, 3]
+            x, iz = pc[..., 0], 1.0 / _safe_z(pc[..., 2])
+            iz2 = iz * iz
+            J_xr_pc = torch.stack(
+                [camera.fx * iz, torch.zeros_like(iz),
+                 -camera.fx * x * iz2 + camera.focal_x_baseline * iz2],
+                dim=-1,
+            )  # [B, N, 3]
+            dpc = torch.cat([eye.expand(pc.shape[:-1] + (3, 3)), -lie.hat(pc)], dim=-1)
+            J2 = J_uv @ dpc                                  # [B, N, 2, 6]
+            J3r = (J_xr_pc[..., None, :] @ dpc)[..., 0, :]   # [B, N, 6]
+            w_st = torch.where(has_stereo, w, zero)
+
+            Jw2 = J2 * w[..., None, None]
+            H = torch.einsum("bnri,bnrj->bij", Jw2, J2) + torch.einsum(
+                "bni,bnj->bij", J3r * w_st[..., None], J3r
+            )
+            g = -(
+                torch.einsum("bnri,bnr->bi", Jw2, r_uv)
+                + torch.einsum("bni,bn->bi", J3r * w_st[..., None], r_xr)
+            )
+            H_lm = H + lam[:, None, None] * torch.diag_embed(
+                torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-6)
+            )
+            xi = linalg_ops.solve6_spd(H_lm, g)
+            ok = torch.isfinite(xi).all(dim=-1)
+            xi = torch.where(ok[:, None], lie.clamp_tangent(xi), zero)
+            R_new, t_new = lie.se3_update(R, t, xi)
+            new_cost = robust_cost(R_new, t_new, inlier)
+            accept = ok & (new_cost < cost)
+            R = torch.where(accept[:, None, None], R_new, R)
+            t = torch.where(accept[:, None], t_new, t)
+            cost = torch.where(accept, new_cost, cost)
+            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                              torch.clamp(lam * 4.0, max=1e4))
+        # Re-classify inliers for the next trial (reference :163-201).
+        _, r_uv, r_xr = _residuals(camera, R, t, points_w, obs_uv, obs_xr)
+        inlier = valid & (chi2_of(r_uv, r_xr) <= delta_sq)
+
+    R = lie.orthonormalize(R)
+    _, r_uv, r_xr = _residuals(camera, R, t, points_w, obs_uv, obs_xr)
+    total = torch.sum(torch.where(inlier, chi2_of(r_uv, r_xr), zero), dim=-1)
+    res = PoseOptResult(R, t, inlier, torch.sum(inlier.to(torch.int64), dim=-1), total)
+    if not batched:
+        res = PoseOptResult(*(f[0] for f in res))
+    return res

@@ -1,0 +1,89 @@
+"""Descriptor matching as dense masked distance matrices.
+
+Port of structure_plp_slam_tpu/ops/matching.py (the projection-window
+matchers and the bit-plane distance matrix). A 256-bit descriptor maps to
+a ±1 vector b; for two descriptors <a, b> = 256 - 2 * hamming, so one f32
+matmul of the bit planes gives every Hamming distance exactly (integer
+sums of at most 256 terms; TF32 is off package-wide). The per-frame
+tracker and the keyframe fuse go through the fused matcher
+(ops/fused_match.py) instead; these functions are its plain-path
+counterparts and serve the descriptor-only matches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from structure_plp_slam_tpu_torch.utils.types import HAMMING_MASKED
+
+
+def unpack_desc_bits(desc):
+    """``[..., 8] int32 -> [..., 256]`` f32 in {-1, +1} (bit-plane form)."""
+    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
+    bits = (desc[..., :, None] >> shifts) & 1
+    bits = bits.reshape(*desc.shape[:-1], 256)
+    return bits.to(torch.float32) * 2.0 - 1.0
+
+
+def distance_matrix_planes(bits_a, bits_b, valid_a=None, valid_b=None):
+    """All-pairs Hamming ``[N, M]`` (int64) from ±1 bit planes ``[N, 256]``
+    via one f32 matmul — the counterpart of the JAX package's
+    ``distance_matrix_mxu``. Invalid entries are ``HAMMING_MASKED``."""
+    dot = bits_a @ bits_b.T
+    d = ((256.0 - dot) * 0.5).to(torch.int64)
+    if valid_a is not None:
+        d = torch.where(valid_a[:, None], d, HAMMING_MASKED)
+    if valid_b is not None:
+        d = torch.where(valid_b[None, :], d, HAMMING_MASKED)
+    return d
+
+
+def _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level, radius_by_level,
+                   max_hamming, ratio, level_window):
+    radius = radius_by_level[torch.clamp(pred_level, 0, radius_by_level.shape[0] - 1)]
+    dx = torch.abs(pred_uv[:, 0:1] - kp_xy[None, :, 0])
+    dy = torch.abs(pred_uv[:, 1:2] - kp_xy[None, :, 1])
+    in_window = (dx <= radius[:, None]) & (dy <= radius[:, None])
+    in_level = torch.abs(kp_level[None, :] - pred_level[:, None]) <= level_window
+    d = torch.where(in_window & in_level, d, HAMMING_MASKED)
+    best = torch.argmin(d, dim=1)
+    best_d = torch.gather(d, 1, best[:, None])[:, 0]
+    ok = best_d <= max_hamming
+    if ratio is not None:
+        masked = d.clone()
+        masked[torch.arange(d.shape[0], device=d.device), best] = HAMMING_MASKED
+        second = torch.amin(masked, dim=1)
+        ok = ok & (best_d.to(torch.float32) <= ratio * second.to(torch.float32))
+    return torch.where(ok, best, -1), best_d
+
+
+def match_by_projection_precomputed(d, pred_uv, pred_level, lm_valid, kp_xy,
+                                    kp_level, *, radius_by_level,
+                                    max_hamming: int = 50, ratio=None,
+                                    level_window: int = 1):
+    """Windowed matching over a precomputed distance matrix ``d [L, N]``.
+    Returns ``(kp_idx [L] (-1 = none), dist [L])``."""
+    d = torch.where(lm_valid[:, None], d, HAMMING_MASKED)
+    return _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level,
+                          radius_by_level, max_hamming, ratio, level_window)
+
+
+def match_by_projection(pred_uv, pred_level, lm_bits, lm_valid, kp_xy, kp_level,
+                        kp_bits, kp_valid, *, radius_by_level,
+                        max_hamming: int = 50, ratio=None, level_window: int = 1):
+    """Landmark -> keypoint matching inside a reprojection window
+    (reference match::projection): per-level pixel radius, ±level_window
+    pyramid levels, best Hamming with an optional Lowe ratio test.
+    Returns ``(kp_idx [L] (-1 = none), dist [L])``."""
+    d = distance_matrix_planes(lm_bits, kp_bits, lm_valid, kp_valid)
+    return _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level,
+                          radius_by_level, max_hamming, ratio, level_window)
+
+
+def predict_scale_level(dist, max_dist, scale_factor: float, num_levels: int):
+    """ceil(log(max_dist / dist) / log(scale_factor)), clipped to the
+    pyramid (reference landmark::predict_scale_level)."""
+    ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-9), min=1.0)
+    log_sf = torch.log(torch.tensor(scale_factor, dtype=torch.float32, device=dist.device))
+    lv = torch.ceil(torch.log(ratio) / log_sf).to(torch.int64)
+    return torch.clamp(lv, 0, num_levels - 1)

@@ -1,0 +1,59 @@
+"""Batched two-view triangulation.
+
+Port of structure_plp_slam_tpu/ops/triangulation.py: DLT normal equations
+for N points at once, null vector from a batched symmetric 4x4
+eigendecomposition (the eigenvector's sign cancels in the homogeneous
+division).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _safe(x, eps=1e-12):
+    return torch.where(torch.abs(x) < eps, torch.full_like(x, eps), x)
+
+
+def triangulate_dlt(bearings_1, bearings_2, R_21, t_21):
+    """Triangulate in camera-1 coordinates from bearing correspondences
+    ``[N, 3]``; ``x_2 = R_21 @ x_1 + t_21``."""
+    z1 = _safe(bearings_1[..., 2:3])
+    z2 = _safe(bearings_2[..., 2:3])
+    x1 = bearings_1[..., 0:1] / z1
+    y1 = bearings_1[..., 1:2] / z1
+    x2 = bearings_2[..., 0:1] / z2
+    y2 = bearings_2[..., 1:2] / z2
+    P1 = torch.cat(
+        [torch.eye(3, dtype=bearings_1.dtype, device=bearings_1.device),
+         bearings_1.new_zeros((3, 1))],
+        dim=1,
+    )
+    P2 = torch.cat([R_21, t_21[..., None]], dim=-1)
+    A = torch.stack(
+        [
+            x1 * P1[2] - P1[0],
+            y1 * P1[2] - P1[1],
+            x2 * P2[..., 2, :] - P2[..., 0, :],
+            y2 * P2[..., 2, :] - P2[..., 1, :],
+        ],
+        dim=-2,
+    )  # [N, 4, 4]
+    AtA = torch.einsum("...ij,...ik->...jk", A, A)
+    _, v = torch.linalg.eigh(AtA)
+    h = v[..., :, 0]  # eigenvector of the smallest eigenvalue
+    return h[..., :3] / _safe(h[..., 3])[..., None]
+
+
+def triangulate_two_view(bear_1, bear_2, R_1w, t_1w, R_2w, t_2w):
+    """Triangulate to world coordinates given world->cam poses."""
+    R_21 = R_2w @ R_1w.transpose(-1, -2)
+    t_21 = t_2w - torch.einsum("...ij,...j->...i", R_21, t_1w)
+    pts_c1 = triangulate_dlt(bear_1, bear_2, R_21, t_21)
+    return torch.einsum("...ji,...nj->...ni", R_1w, pts_c1 - t_1w[..., None, :])
+
+
+def rays_parallax_cos(bear_1, bear_2, R_21):
+    """cos of the ray parallax angle between correspondences."""
+    b1_in_2 = torch.einsum("...ij,...nj->...ni", R_21, bear_1)
+    return torch.sum(b1_in_2 * bear_2, dim=-1)

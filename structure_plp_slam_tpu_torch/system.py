@@ -1,0 +1,589 @@
+"""System facade: the public API of the port (RGB-D point slice).
+
+Port of structure_plp_slam_tpu/system.py for RGB-D tracking and mapping
+with point landmarks (reference PLPSLAM::system, src/PLPSLAM/system.cc):
+feed frames with ``feed_RGBD_frame``, read trajectories back. Each frame
+runs the frontend, then ``_track_step`` (motion-model prediction,
+tracking, landmark statistics, decision packing); the host-side decisions
+(lost check, keyframe insertion, trajectory record) trail the device by
+``track_lag`` frames and read ONE packed vector per frame. On the card
+that vector comes back through a pinned non-blocking copy and a CUDA
+event, so the copy overlaps the next frames' work. A keyframe runs the
+whole mapping chain (``_kf_chain``) as one Python function with no host
+sync inside.
+
+What this slice does not port raises ``NotImplementedError`` naming the
+ROADMAP item that brings it: monocular and stereo feeds, loop closing,
+lines, segmentation masks (planes), relocalization, capacity growth and
+non-perspective cameras.
+
+Usage:
+    slam = System(config, enable_loop_closing=False)   # device="cuda"
+    slam.startup()
+    for img, depth, ts in frames:
+        slam.feed_RGBD_frame(img, depth, ts)
+    slam.shutdown()
+    traj = slam.frame_trajectory()
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import enum
+import logging
+import time
+from typing import Any, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from structure_plp_slam_tpu_torch.camera import CameraSetup
+from structure_plp_slam_tpu_torch.camera import base as cam_base
+from structure_plp_slam_tpu_torch.config import Config
+from structure_plp_slam_tpu_torch.data import map_state as ms
+from structure_plp_slam_tpu_torch.io import trajectory as traj_io
+from structure_plp_slam_tpu_torch.models import frontend as frontend_mod
+from structure_plp_slam_tpu_torch.models import mapper, tracker
+from structure_plp_slam_tpu_torch.ops import orb as orb_ops
+from structure_plp_slam_tpu_torch.utils.types import resolve_device, round_up
+
+_log = logging.getLogger("plpslam.torch.system")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class StageTimer:
+    """Per-stage wall-clock timing (reference tracking_module.cc:607-645).
+    With ``synced=True`` each stage ends with ``torch.cuda.synchronize()``
+    so its time includes the device work it issued. Each stage is also a
+    ``stage.<name>`` range for torch.profiler, so a trace can attribute
+    device kernels to stages (a no-op while no profiler runs)."""
+
+    def __init__(self, synced: bool = False, device=None):
+        self.synced = synced and device is not None and torch.device(device).type == "cuda"
+        self.times: dict = collections.defaultdict(list)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function(f"stage.{name}"):
+                yield
+        finally:
+            if self.synced:
+                torch.cuda.synchronize()
+            self.times[name].append(time.perf_counter() - t0)
+
+    def summary(self) -> dict:
+        out = {}
+        for name, ts in self.times.items():
+            a = np.asarray(ts)
+            out[name] = {
+                "count": int(len(a)),
+                "mean_ms": float(a.mean()) * 1e3,
+                "median_ms": float(np.median(a)) * 1e3,
+                "max_ms": float(a.max()) * 1e3,
+            }
+        return out
+
+
+class TrackerState(enum.Enum):
+    NOT_INITIALIZED = "NotInitialized"
+    TRACKING = "Tracking"
+    LOST = "Lost"
+
+
+# Layout of the per-frame packed decision vector.
+_PK_NUM_TRACKED = 0
+_PK_REF_TRACKED = 1
+_PK_CLOSE_TRK = 2
+_PK_CLOSE_UNTRK = 3
+_PK_REF_KF = 4
+_PK_NEXT_LM = 5
+_PK_POSE = slice(6, 18)      # row-major [3,4] camera-from-world
+_PK_REL = slice(18, 30)      # row-major [3,4] pose relative to ref keyframe
+_PK_SIZE = 30
+
+
+def _pack_decision(state, res, next_lm):
+    """Fuse every per-frame host-needed value into one f32 vector."""
+    kfp = state.kf_pose[res.ref_kf]
+    R_ref, t_ref = kfp[:, :3], kfp[:, 3]
+    R_rel = res.R @ R_ref.T
+    t_rel = res.t - R_rel @ t_ref
+    P = torch.cat([res.R, res.t[:, None]], 1)
+    rel = torch.cat([R_rel, t_rel[:, None]], 1)
+    dev = state.device
+    head = torch.stack([
+        res.num_tracked, res.ref_tracked, res.n_close_tracked, res.n_close_untracked,
+        res.ref_kf, torch.as_tensor(next_lm, device=dev),
+    ]).to(torch.float32)
+    return torch.cat([head, P.reshape(-1), rel.reshape(-1)])
+
+
+class _TrackCarry(NamedTuple):
+    """The tracker's recurrent device state."""
+
+    R: torch.Tensor           # [3, 3] camera-from-world rotation
+    t: torch.Tensor           # [3]
+    Rv: torch.Tensor          # [3, 3] velocity (frame-to-frame motion model)
+    tv: torch.Tensor          # [3]
+    last_kp_lm: torch.Tensor  # [N] previous frame's keypoint->landmark
+    ref_kf: Any               # reference keyframe (int or device scalar)
+
+
+def _track_step(camera, state, feats, carry: _TrackCarry, inv_sigma_sq, obs_ind,
+                min_obs, next_lm, *, num_levels, scale_factor):
+    """The per-frame device pipeline: motion-model prediction, tracking,
+    landmark statistics, motion-model update, decision packing."""
+    R_pred = carry.Rv @ carry.R
+    t_pred = carry.Rv @ carry.t + carry.tv
+    res = tracker.track_frame(
+        camera, state, feats, R_pred, t_pred, carry.last_kp_lm, carry.ref_kf,
+        inv_sigma_sq, obs_ind, min_obs, num_levels=num_levels, scale_factor=scale_factor,
+    )
+    state = state._replace(
+        lm_n_vis=state.lm_n_vis + res.lm_vis.to(torch.int64),
+        lm_n_fnd=state.lm_n_fnd + res.lm_fnd.to(torch.int64),
+    )
+    Rv2 = res.R @ carry.R.T
+    carry2 = _TrackCarry(
+        R=res.R, t=res.t, Rv=Rv2, tv=res.t - Rv2 @ carry.t,
+        last_kp_lm=res.kp_lm, ref_kf=res.ref_kf,
+    )
+    return state, res, carry2, _pack_decision(state, res, next_lm)
+
+
+def _clear_failed_init(state):
+    """Undo a failed depth-init keyframe insertion: clear the validity
+    masks and the keyframe's association row."""
+    return state._replace(
+        kf_valid=ms.with_row(state.kf_valid, 0, False),
+        kf_kp_valid=ms.with_row(state.kf_kp_valid, 0, False),
+        kf_lm_idx=ms.with_row(state.kf_lm_idx, 0, -1),
+        lm_valid=torch.zeros_like(state.lm_valid),
+        lm_plane=torch.full_like(state.lm_plane, -1),
+    )
+
+
+def _kf_chain(camera, st, slot, pose, ts, feats, kp_lm, next_lm, inv_sigma_sq, ind0,
+              *, do_ba, do_cull_kf, stats_full, num_tri_neighbors, scale_factor,
+              num_levels):
+    """The keyframe processing chain (reference mapping thread,
+    mapping_module.cc:193-285) with lines, segmentation and loop detection
+    off: insert, cull landmarks, triangulate, fuse, local BA, cull
+    keyframes, statistics. The observation indicator ``ind0`` is patched
+    row by row between stages (only fuse's global remap rebuilds it).
+    Returns (state, next_lm, indicator)."""
+    K = st.kf_pose.shape[0]
+    dev = st.device
+    st, created = mapper.insert_keyframe(camera, st, slot, pose, ts, feats, kp_lm, next_lm)
+    next_lm = next_lm + created
+    slot_t = torch.tensor([slot], device=dev)
+    ind = ms.indicator_update_rows(ind0, st, slot_t)
+    st, _ = mapper.cull_landmarks(st, slot, ind=ind)
+    ind = ind * st.lm_valid[None, :].to(torch.float32)
+    st, n_tri, tri_nbs = mapper.triangulate_with_neighbors(
+        camera, st, slot, next_lm, ind, num_neighbors=num_tri_neighbors,
+        return_neighbors=True,
+    )
+    next_lm = next_lm + n_tri
+    ind = ms.indicator_update_rows(ind, st, torch.cat([slot_t, tri_nbs]))
+    kf_mask = torch.zeros((K,), dtype=torch.bool, device=dev)
+    kf_mask[slot] = True
+    lm_local = ms.local_landmark_mask(st, kf_mask, ind)
+    st, _ = mapper.fuse_into_keyframe(camera, st, slot, lm_local, ind=ind)
+    ind = ms.observation_indicator(st)
+
+    ba_cams = None
+    if do_ba:
+        st, _, ba_cams = mapper.local_ba(camera, st, slot, inv_sigma_sq, ind=ind,
+                                         return_cams=True)
+        ind = ms.indicator_update_rows(ind, st, ba_cams)
+    if do_cull_kf:
+        st, _ = mapper.cull_keyframes(st, slot, ind=ind)
+        ind = ind * st.kf_valid[:, None].to(torch.float32)
+    if stats_full:
+        st = mapper.refresh_landmark_stats(
+            st, ind, scale_factor=scale_factor, num_levels=num_levels,
+            window_kfs=ba_cams,
+        )
+    else:
+        st = mapper.update_landmark_normals(st, ind)
+    return st, next_lm, ind
+
+
+@dataclasses.dataclass
+class _PendingFrame:
+    """A fed frame whose host-side decisions are deferred by ``track_lag``
+    frames. ``packed`` is the decision vector (pinned host memory on the
+    card, filled asynchronously; ``ready`` is the event that marks it)."""
+
+    packed: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    feats: dict
+    ts: float
+    res: Any
+    frames_since_kf: int
+
+
+class System:
+    def __init__(
+        self,
+        config: Config,
+        *,
+        max_keyframes: int = 256,
+        max_landmarks: int = 32768,
+        enable_mapping: bool = True,
+        enable_loop_closing: bool = True,
+        with_lines: bool = False,
+        num_triangulation_neighbors: int = 2,
+        max_kf_interval: Optional[int] = None,
+        min_kf_interval: int = 0,
+        track_lag: int = 2,
+        auto_grow: bool = True,
+        verbose_timing: bool = False,
+        device=None,
+    ):
+        if enable_loop_closing:
+            raise _not_ported("loop closing (pass enable_loop_closing=False)", "A12")
+        if with_lines:
+            raise _not_ported("line tracking", "A14")
+        cam_base.dispatch(config.camera)  # non-perspective models raise (A15)
+        if config.camera.setup is not CameraSetup.RGBD:
+            item = "A9" if config.camera.setup is CameraSetup.MONOCULAR else "A10"
+            raise _not_ported(f"the {config.camera.setup.value} setup", item)
+        self.device = resolve_device(device)
+        self.timer = StageTimer(synced=verbose_timing, device=self.device)
+        self.auto_grow = bool(auto_grow)
+        # ``track_lag``: how many frames the host-side decisions may trail
+        # the device work (0 = synchronous per-frame semantics).
+        self.track_lag = max(0, int(track_lag))
+        self._pending: collections.deque = collections.deque()
+        # Keyframe conditions A1/A2 (keyframe_inserter.cc:76-81).
+        self.max_kf_interval = (
+            max_kf_interval if max_kf_interval is not None else int(config.camera.fps)
+        )
+        self.min_kf_interval = min_kf_interval
+        self.config = config
+        self.camera = config.camera
+        cap = round_up(
+            orb_ops.OrbExtractor(config.camera.rows, config.camera.cols, config.orb).capacity,
+            8,
+        )
+        self.frontend = frontend_mod.Frontend(config.camera, config.orb, pad_to=cap,
+                                              device=self.device)
+        self.max_keyframes = max_keyframes
+        self.max_landmarks = max_landmarks
+        self.num_tri_neighbors = num_triangulation_neighbors
+        self.enable_mapping = enable_mapping
+        self.enable_loop_closing = False
+        self.num_frames = 0
+        self.num_track_steps = 0
+        self._running = False
+        self.reset()
+
+    # ------------------------------------------------------------------
+    @property
+    def state(self) -> ms.MapState:
+        """The current MapState, after draining pending frame decisions."""
+        self._drain_pending()
+        return self._state
+
+    @property
+    def tracking_state(self) -> TrackerState:
+        self._drain_pending()
+        return self._tracking_state
+
+    def _drain_pending(self):
+        while self._pending:
+            self._consume(self._pending.popleft())
+
+    # ------------------------------------------------------------------
+    # Lifecycle (reference: system::startup/shutdown/reset).
+    # ------------------------------------------------------------------
+    def startup(self, need_initialize: bool = True):
+        self._running = True
+        if not need_initialize:
+            self._tracking_state = TrackerState.LOST
+
+    def shutdown(self):
+        self._drain_pending()
+        self._running = False
+
+    def reset(self):
+        self._pending.clear()
+        self._state = ms.create(self.max_keyframes, self.frontend.pad_to,
+                                self.max_landmarks, device=self.device)
+        self._tracking_state = TrackerState.NOT_INITIALIZED
+        self.next_kf = 0
+        self.next_lm = 0
+        self.frames_since_kf = 0
+        eye = torch.eye(3, dtype=torch.float32, device=self.device)
+        zero = torch.zeros((3,), dtype=torch.float32, device=self.device)
+        self.pose = (eye, zero)
+        self.vel = (eye, zero)
+        self.last_kp_lm = torch.full((self.frontend.pad_to,), -1, dtype=torch.int64,
+                                     device=self.device)
+        self.ref_kf = 0
+        self._ref_kf_dev = 0
+        # (timestamp, reference keyframe, pose relative to it) per frame;
+        # every recorded frame was tracked (a lost frame raises, ROADMAP A11).
+        self._frame_stats: List[Tuple[float, int, np.ndarray]] = []
+        self._init_frame_count = self.num_frames
+        self._ind_cache = None
+
+    # ------------------------------------------------------------------
+    # Frame feeding (reference: system::feed_*_frame).
+    # ------------------------------------------------------------------
+    def feed_monocular_frame(self, img, timestamp: float, mask=None, seg_mask=None):
+        raise _not_ported("monocular tracking", "A9")
+
+    def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None,
+                          seg_mask=None):
+        raise _not_ported("stereo tracking", "A10")
+
+    def feed_RGBD_frame(self, img, depthmap, timestamp: float, mask=None,
+                        seg_mask=None):
+        """Track one RGB-D frame; returns the tracked world->camera pose
+        ``[3, 4]`` (a device tensor), or None before initialization.
+        ``mask``: optional [H, W] extraction mask, 0 = ignore."""
+        if seg_mask is not None:
+            raise _not_ported("segmentation masks (planar mapping)", "A13")
+        with self.timer.stage("frontend"):
+            feats = self.frontend.rgbd(img, depthmap, mask=mask)
+        return self._track(feats, timestamp)
+
+    def _track(self, feats, ts: float):
+        if not self._running:
+            return None
+        self.num_frames += 1
+        if self._tracking_state is TrackerState.NOT_INITIALIZED:
+            if not self._initialize(feats, ts):
+                return None
+            return self._record_frame(ts)
+        # min_obs of the reliable-landmark count relaxes while the map is
+        # young (keyframe_inserter.cc:66-67; see the JAX package).
+        min_obs = 3 if self.next_kf >= 3 else 1
+        Rv, tv = self.vel
+        Rp, tp = self.pose
+        carry = _TrackCarry(R=Rp, t=tp, Rv=Rv, tv=tv, last_kp_lm=self.last_kp_lm,
+                            ref_kf=self._ref_kf_dev)
+        params = self.frontend.extractor.params
+        with self.timer.stage("track"):
+            self._state, res, carry2, packed = _track_step(
+                self.camera, self._state, feats, carry, self.frontend.inv_sigma_sq,
+                self._obs_indicator(), min_obs, self.next_lm,
+                num_levels=params.num_levels, scale_factor=params.scale_factor,
+            )
+        self.num_track_steps += 1
+        self.pose = (carry2.R, carry2.t)
+        self.vel = (carry2.Rv, carry2.tv)
+        self.last_kp_lm = carry2.last_kp_lm
+        self._ref_kf_dev = carry2.ref_kf
+        self.frames_since_kf += 1
+
+        # Defer the host-side decisions: the packed vector's copy to the
+        # host starts now and is read ``track_lag`` frames later.
+        ready = None
+        if packed.is_cuda:
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            packed = host
+        entry = _PendingFrame(packed=packed, ready=ready, feats=feats, ts=ts, res=res,
+                              frames_since_kf=self.frames_since_kf)
+        self._pending.append(entry)
+        while len(self._pending) > self.track_lag:
+            self._consume(self._pending.popleft())
+        return torch.cat([res.R, res.t[:, None]], 1)
+
+    # ------------------------------------------------------------------
+    def _consume(self, entry: _PendingFrame) -> bool:
+        """Apply a fed frame's deferred host-side decisions: lost check,
+        capacity check, keyframe decision + insertion, trajectory record
+        (tracking_module.cc:651-657, keyframe_inserter.cc:54-114)."""
+        with self.timer.stage("decision_fetch"):
+            if entry.ready is not None:
+                entry.ready.synchronize()
+            vals = entry.packed.numpy()
+        num_tracked = int(vals[_PK_NUM_TRACKED])
+        ref_tracked = int(vals[_PK_REF_TRACKED])
+        n_close_trk = int(vals[_PK_CLOSE_TRK])
+        n_close_untrk = int(vals[_PK_CLOSE_UNTRK])
+        ref_kf_host = int(vals[_PK_REF_KF])
+        next_lm_host = int(vals[_PK_NEXT_LM])
+        rel = vals[_PK_REL].reshape(3, 4).copy()
+        ts = entry.ts
+
+        # Reference acceptance: local-map tracking must keep >= 30 inliers;
+        # below that the JAX package declares Lost and relocalizes.
+        if num_tracked < 30:
+            raise _not_ported(
+                f"relocalization (tracking lost at t={ts:.3f}, {num_tracked} inliers)",
+                "A11",
+            )
+        self._tracking_state = TrackerState.TRACKING
+        self.ref_kf = ref_kf_host
+
+        if self.enable_mapping and self.auto_grow and (
+            self.next_kf >= self.max_keyframes - 1
+            or next_lm_host >= self.max_landmarks - 2 * self.frontend.pad_to
+        ):
+            raise _not_ported("map capacity growth (map_database.grow)", "A2")
+
+        # Keyframe decision (keyframe_inserter.cc:54-114): condition B
+        # (enough matches, and the tracked share of the reference's
+        # reliable landmarks dropped below 0.9 or close points demand
+        # insertion) with A1/A2/A3, or the A1 interval force.
+        if self.enable_mapping and self.next_kf < self.max_keyframes:
+            lm_headroom = next_lm_host < self.max_landmarks - 2 * self.frontend.pad_to
+            close_needed = n_close_trk < 100 and n_close_untrk > 70
+            cond_b = num_tracked >= 15 and (
+                num_tracked < 0.9 * max(ref_tracked, 1) or close_needed
+            )
+            cond_a1 = self.frames_since_kf >= self.max_kf_interval
+            cond_a2 = self.frames_since_kf >= self.min_kf_interval
+            cond_a3 = num_tracked < 0.25 * max(ref_tracked, 1)
+            need = (
+                (cond_b and (cond_a1 or cond_a2 or cond_a3))
+                or (cond_a1 and num_tracked >= 15)
+            ) and lm_headroom
+            if need:
+                _log.info("keyframe %d at t=%.3f (tracked=%d ref_tracked=%d)",
+                          self.next_kf, ts, num_tracked, ref_tracked)
+                with self.timer.stage("keyframe"):
+                    self._insert_keyframe(entry)
+
+        self._frame_stats.append((ts, ref_kf_host, rel))
+        return True
+
+    # ------------------------------------------------------------------
+    def _initialize(self, feats, ts: float) -> bool:
+        """RGB-D starts from depth: the first frame with >= 30 depth seeds
+        becomes keyframe 0 at the origin."""
+        dev = self.device
+        pose = torch.cat([torch.eye(3, device=dev), torch.zeros((3, 1), device=dev)], 1)
+        self._state, created = mapper.insert_keyframe(
+            self.camera, self._state, 0, pose, ts, feats,
+            torch.full((self.frontend.pad_to,), -1, dtype=torch.int64, device=dev), 0,
+        )
+        n = int(created)
+        if n < 30:
+            self._state = _clear_failed_init(self._state)
+            return False
+        self.next_kf = 1
+        self.next_lm = n
+        self.last_kp_lm = self._state.kf_lm_idx[0]
+        self.ref_kf = 0
+        self._ref_kf_dev = 0
+        eye = torch.eye(3, dtype=torch.float32, device=dev)
+        zero = torch.zeros((3,), dtype=torch.float32, device=dev)
+        self.pose = (eye, zero)
+        self.vel = (eye, zero)
+        self._tracking_state = TrackerState.TRACKING
+        self.frames_since_kf = 0
+        self._init_frame_count = self.num_frames
+        self._ind_cache = None
+        return True
+
+    # ------------------------------------------------------------------
+    def _insert_keyframe(self, entry: _PendingFrame):
+        """Run the keyframe chain on the frame and publish its results."""
+        res = entry.res
+        slot = self.next_kf
+        pose = torch.cat([res.R, res.t[:, None]], 1)
+        params = self.frontend.extractor.params
+        with self.timer.stage("keyframe.chain"):
+            st, next_lm, ind = _kf_chain(
+                self.camera, self._state, slot, pose, entry.ts, entry.feats, res.kp_lm,
+                self.next_lm, self.frontend.inv_sigma_sq, self._obs_indicator(),
+                do_ba=self.next_kf + 1 >= 3,
+                do_cull_kf=self.next_kf + 1 >= 5,
+                stats_full=slot % 2 == 0,
+                num_tri_neighbors=self.num_tri_neighbors,
+                scale_factor=params.scale_factor,
+                num_levels=params.num_levels,
+            )
+        self.next_kf += 1
+        self.frames_since_kf = 0
+        self._state = st
+        self.next_lm = next_lm
+        self.last_kp_lm = st.kf_lm_idx[slot]
+        self.ref_kf = slot
+        self._ref_kf_dev = slot
+        # The chain returns the post-chain indicator: seed the cache.
+        self._ind_cache = ind
+
+    # ------------------------------------------------------------------
+    def _obs_indicator(self):
+        """Cached observation indicator [K, L]; rebuilt after the map's
+        associations change."""
+        if self._ind_cache is None:
+            self._ind_cache = ms.observation_indicator(self._state)
+        return self._ind_cache
+
+    def _record_frame(self, ts: float) -> np.ndarray:
+        R, t = self.pose
+        kf_pose = self._state.kf_pose[self.ref_kf]
+        R_rel = R @ kf_pose[:, :3].T
+        t_rel = t - R_rel @ kf_pose[:, 3]
+        both = torch.stack([torch.cat([R, t[:, None]], 1),
+                            torch.cat([R_rel, t_rel[:, None]], 1)]).cpu().numpy()
+        self._frame_stats.append((ts, self.ref_kf, both[1]))
+        return both[0]
+
+    # ------------------------------------------------------------------
+    # Output (reference: io/trajectory_io).
+    # ------------------------------------------------------------------
+    def frame_trajectory(self):
+        """Frame poses recomposed against the current keyframe poses."""
+        self._drain_pending()
+        kf_poses = self._state.kf_pose.cpu().numpy()
+        out = []
+        for ts, ref, rel in self._frame_stats:
+            Pk = kf_poses[ref]
+            R = rel[:, :3] @ Pk[:, :3]
+            t = rel[:, :3] @ Pk[:, 3] + rel[:, 3]
+            out.append((ts, np.concatenate([R, t[:, None]], 1)))
+        return out
+
+    def keyframe_trajectory(self):
+        self._drain_pending()
+        kf_poses = self._state.kf_pose.cpu().numpy()
+        kf_valid = self._state.kf_valid.cpu().numpy()
+        kf_ts = self._state.kf_timestamp.cpu().numpy()
+        return [(float(kf_ts[k]), kf_poses[k]) for k in np.argsort(kf_ts) if kf_valid[k]]
+
+    def save_frame_trajectory(self, path: str, fmt: str = "tum"):
+        saver = traj_io.save_tum if fmt == "tum" else traj_io.save_kitti
+        saver(path, self.frame_trajectory())
+
+    def save_keyframe_trajectory(self, path: str, fmt: str = "tum"):
+        saver = traj_io.save_tum if fmt == "tum" else traj_io.save_kitti
+        saver(path, self.keyframe_trajectory())
+
+    @property
+    def num_keyframes(self) -> int:
+        self._drain_pending()
+        return int(self._state.kf_valid.sum())
+
+    @property
+    def num_landmarks(self) -> int:
+        self._drain_pending()
+        return int(self._state.lm_valid.sum())
+
+    def metrics(self) -> dict:
+        self._drain_pending()
+        return {
+            "frames": self.num_frames,
+            "keyframes": self.num_keyframes,
+            "landmarks": self.num_landmarks,
+            "tracking_state": self._tracking_state.value,
+            "timing": self.timer.summary(),
+        }

@@ -1,0 +1,97 @@
+"""Synthetic renderable RGB-D scene (numpy + the port's own ops).
+
+The port's copy of tests/synthetic_scene.py's make_texture, render,
+trajectory and make_sequence, built on the port's gaussian_blur and
+so3_exp so that it runs without JAX: a textured background plane at
+z = PLANE_Z plus a foreground patch at z = FG_Z, rendered through a
+perspective camera with exact depth and ground-truth poses.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from structure_plp_slam_tpu_torch.ops import image as image_ops
+from structure_plp_slam_tpu_torch.ops import lie
+
+PLANE_Z = 6.0
+PLANE_HALF = 5.0  # plane spans [-5, 5]^2
+FG_Z = 3.5
+FG_X = (-1.1, 1.1)
+FG_Y = (-0.9, 0.9)
+
+
+def make_texture(rng, size=768):
+    tex = rng.uniform(0, 255, size=(size, size)).astype(np.float32)
+    tex = image_ops.gaussian_blur(torch.from_numpy(tex), 7, 1.5).numpy()
+    for _ in range(int(size * 0.6)):
+        cy, cx = rng.integers(10, size - 20, 2)
+        s = rng.integers(4, 14)
+        tex[cy : cy + s, cx : cx + s] = rng.uniform(0, 255)
+    return tex
+
+
+def render(camera, tex, R_cw, t_cw, plane_half: float = PLANE_HALF):
+    """Render image + depth of the two textured planes."""
+    H, W = camera.rows, camera.cols
+    ys, xs = np.mgrid[0:H, 0:W]
+    d = np.stack(
+        [(xs - camera.cx) / camera.fx, (ys - camera.cy) / camera.fy,
+         np.ones_like(xs, np.float64)],
+        -1,
+    )
+    R_wc = R_cw.T
+    C = -R_cw.T @ t_cw
+    dw = d @ R_wc.T
+    denom = np.where(np.abs(dw[..., 2]) < 1e-9, 1e-9, dw[..., 2])
+    size = tex.shape[0]
+
+    def hit_plane(z_plane):
+        lam = (z_plane - C[2]) / denom
+        return lam, C + lam[..., None] * dw
+
+    _, pw_bg = hit_plane(PLANE_Z)
+    lam_fg, pw_fg = hit_plane(FG_Z)
+    fg_mask = (
+        (lam_fg > 0)
+        & (pw_fg[..., 0] >= FG_X[0]) & (pw_fg[..., 0] <= FG_X[1])
+        & (pw_fg[..., 1] >= FG_Y[0]) & (pw_fg[..., 1] <= FG_Y[1])
+    )
+    pw = np.where(fg_mask[..., None], pw_fg, pw_bg)
+
+    def sample(p, half, offset):
+        u = (p[..., 0] + half) / (2 * half) * (size - 1)
+        v = (p[..., 1] + half) / (2 * half) * (size - 1)
+        ui = np.clip((u + offset).astype(int), 0, size - 1)
+        vi = np.clip(v.astype(int), 0, size - 1)
+        return tex[vi, ui]
+
+    img = np.where(
+        fg_mask, sample(pw_fg, 2.0, size // 3), sample(pw_bg, plane_half, 0)
+    ).astype(np.float32)
+    depth = ((pw - C) @ R_cw.T)[..., 2].astype(np.float32)
+    return img, depth
+
+
+def trajectory(num_frames, step=0.06, rot=0.004):
+    """A gentle arc: translate along +x with slight yaw."""
+    poses = []
+    for i in range(num_frames):
+        phi = torch.tensor([[0.0, rot * i, 0.0]], dtype=torch.float32)
+        R = lie.so3_exp(phi)[0].numpy().astype(np.float64)
+        C = np.array([step * i, 0.015 * np.sin(i * 0.4), 0.01 * i])
+        poses.append((R, -R @ C))
+    return poses
+
+
+def make_sequence(rng, camera, num_frames=20, step=0.06):
+    """``(frames, poses)``: frames are (image, depth, timestamp) at 30 fps,
+    poses the ground-truth world->camera (R, t)."""
+    tex = make_texture(rng)
+    poses = trajectory(num_frames, step=step)
+    frames = []
+    for i, (R, t) in enumerate(poses):
+        img, depth = render(camera, tex, R, t)
+        frames.append((img, depth, float(i) / 30.0))
+    return frames, poses

@@ -1,0 +1,112 @@
+"""Dtype policy, sentinels and small tensor helpers.
+
+Port of structure_plp_slam_tpu/utils/types.py. Policy:
+
+* Geometry runs in float32.
+* Descriptors are 256-bit rBRIEF stored as ``int32 [*, 8]`` — the BIT
+  PATTERNS of the JAX package's ``uint32`` words (torch's uint32 supports
+  few ops). Code compares and shifts bits (``>> k & 1``), never signed
+  values.
+* Invalid slots in padded tensors are marked by boolean masks.
+
+It also holds the helpers that stand in for JAX idioms with no direct
+torch counterpart: a static-size ``nonzero``, a stable top-k and a
+scatter-set with a fixed rule for duplicate indices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Sentinel index for "no landmark / no match" in index tensors.
+INVALID = -1
+
+# A large-but-finite distance used to mask out candidates in min-reductions.
+BIG = 1e30
+# Max Hamming distance for 256-bit descriptors + 1; used as masked value.
+HAMMING_MASKED = 1024
+
+
+def round_up(x: int, m: int) -> int:
+    """Round ``x`` up to a multiple of ``m`` (static Python int)."""
+    return ((x + m - 1) // m) * m
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another. Raises when CUDA is asked for (or defaulted to) without a
+    card — nothing falls back to the CPU silently."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def rdiv(scalar: float, t):
+    """``scalar / t`` as ONE correctly rounded division. torch computes a
+    Python-scalar numerator as ``reciprocal(t) * scalar`` (two roundings);
+    the JAX package divides."""
+    return torch.full_like(t, scalar) / t
+
+
+def masked_argmin(values, mask, dim: int = -1):
+    """Argmin over ``values`` where ``mask`` is True. Returns
+    ``(indices, min_values)``; rows without a valid entry give ``BIG``."""
+    v = torch.where(mask, values, torch.full_like(values, BIG))
+    return torch.argmin(v, dim=dim), torch.amin(v, dim=dim)
+
+
+def topk_stable(values, k: int, dim: int = -1):
+    """Largest ``k`` along ``dim``, lower index first on ties — the order
+    ``lax.top_k`` guarantees and ``torch.topk`` does not."""
+    vals, idx = torch.sort(values, dim=dim, descending=True, stable=True)
+    return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
+
+
+def masked_topk_smallest(values, mask, k: int):
+    """Top-k *smallest* values along the last axis under a mask.
+    Returns ``(values, indices)``; invalid slots surface as ``BIG``."""
+    v = torch.where(mask, values, torch.full_like(values, BIG))
+    neg, idx = topk_stable(-v, k)
+    return -neg, idx
+
+
+def safe_norm(x, dim=-1, eps=1e-12, keepdim=False):
+    """L2 norm clamped below by sqrt(eps)."""
+    sq = torch.sum(x * x, dim=dim, keepdim=keepdim)
+    return torch.sqrt(torch.clamp(sq, min=eps))
+
+
+def normalize(x, dim=-1, eps=1e-12):
+    """Unit-normalize along ``dim`` with safe division."""
+    return x / safe_norm(x, dim=dim, eps=eps, keepdim=True)
+
+
+def nonzero_static(mask, size: int, fill_value: int):
+    """``jnp.nonzero(mask, size=size, fill_value=fill)[0]`` for a 1-D mask:
+    the first ``size`` True positions in order, padded with ``fill``."""
+    idx = torch.nonzero(mask, as_tuple=False).reshape(-1)[:size]
+    out = torch.full((size,), fill_value, dtype=torch.int64, device=mask.device)
+    out[: idx.shape[0]] = idx
+    return out
+
+
+def scatter_set(target, idx, vals, valid):
+    """``target[idx[i]] = vals[i]`` for every ``i`` with ``valid[i]``
+    (returns a new tensor; rows of ``target`` are along dim 0).
+
+    Where several valid rows name the same index, the LAST row wins: the
+    order XLA's serial CPU scatter leaves for ``.at[].set``, made explicit
+    so the result is the same on every device (torch's ``index_put_``
+    leaves duplicates unspecified)."""
+    n = target.shape[0]
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    safe = torch.where(valid, idx, torch.full_like(idx, n))
+    winner = torch.full((n + 1,), -1, dtype=pos.dtype, device=idx.device)
+    winner.scatter_reduce_(0, safe, torch.where(valid, pos, -1), "amax")
+    wins = valid & (winner[safe] == pos)
+    out = target.clone()
+    out[idx[wins]] = vals[wins].to(target.dtype)
+    return out

@@ -1,0 +1,219 @@
+"""Port parity: the whole RGB-D point slice, System against System.
+
+Both packages' ``System`` take the same 6 rendered frames (320x240, 600
+keypoints over 4 levels, 8 keyframes / 4096 landmarks, loop closing off,
+``track_lag=2``). The JAX System runs its CPU branch (masked distance
+matrices), the port its fused matcher; both compute the same function, so
+the per-frame poses must agree within 1e-3 m / 1e-3 rad, the keyframe
+counts must be equal and the landmark counts within 2%. The port's matcher
+must have been called 3 times per tracked frame (stage 1 narrow + wide,
+stage 2) and once per keyframe chain (fuse). On the CPU those calls take
+the plain version, so ``fused_match.launches`` stays 0 there; the
+card-marked case checks that every call launched the kernel.
+
+The slow case is the port's version of
+tests/test_system_e2e.py::test_rgbd_sequence_ate, with the same asserts.
+Frames come from the port's copy of the renderer
+(tests/test_torch_frontend.py holds it against tests/synthetic_scene.py),
+so this file also runs where another package named ``tests`` shadows the
+repository's.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from structure_plp_slam_tpu.camera import Camera as JCamera
+from structure_plp_slam_tpu.camera import CameraModel as JModel
+from structure_plp_slam_tpu.camera import CameraSetup as JSetup
+from structure_plp_slam_tpu.config import Config as JConfig
+from structure_plp_slam_tpu.ops.orb import OrbParams as JOrb
+from structure_plp_slam_tpu.system import System as JSystem
+from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
+from structure_plp_slam_tpu_torch.config import Config
+from structure_plp_slam_tpu_torch.io import trajectory as traj_io
+from structure_plp_slam_tpu_torch.ops import fused_match as tfm
+from structure_plp_slam_tpu_torch.ops.orb import OrbParams
+from structure_plp_slam_tpu_torch.system import System, TrackerState
+from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+torch.set_num_threads(2)
+
+_KW = dict(name="synt", cols=320, rows=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5,
+           fps=30.0, focal_x_baseline=26.0, depth_threshold=400.0, depthmap_factor=1.0)
+JCAM = JCamera(setup=JSetup.RGBD, model=JModel.PERSPECTIVE, **_KW)
+TCAM = Camera(setup=CameraSetup.RGBD, model=CameraModel.PERSPECTIVE, **_KW)
+NUM_FRAMES = 6
+SIZES = dict(max_keyframes=8, max_landmarks=4096, enable_loop_closing=False, track_lag=2)
+
+
+def _cfg(camera=TCAM):
+    return Config(camera=camera, orb=OrbParams(max_num_keypts=600, num_levels=4), raw={})
+
+
+@functools.lru_cache(maxsize=1)
+def _frames():
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), TCAM,
+                                              num_frames=NUM_FRAMES)
+    return frames
+
+
+def _run(slam, frames):
+    slam.startup()
+    poses = []
+    for img, depth, ts in frames:
+        out = slam.feed_RGBD_frame(img, depth, ts)
+        if torch.is_tensor(out):
+            out = out.cpu().numpy()
+        poses.append(None if out is None else np.array(out))
+    slam.shutdown()
+    return poses
+
+
+@functools.lru_cache(maxsize=1)
+def run_jax():
+    js = JSystem(JConfig(camera=JCAM, orb=JOrb(max_num_keypts=600, num_levels=4), raw={}),
+                 **SIZES)
+    return js, _run(js, _frames())
+
+
+def run_port(device):
+    ts = System(_cfg(), device=device, **SIZES)
+    tfm.reset_counts()
+    poses = _run(ts, _frames())
+    return ts, poses, tfm.fused_match.calls, tfm.fused_match.launches
+
+
+@functools.lru_cache(maxsize=1)
+def run_port_cpu():
+    return run_port("cpu")
+
+
+def _rot_angle(Ra, Rb):
+    c = (np.trace(Ra.T @ Rb) - 1.0) / 2.0
+    return float(np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+def _assert_systems_agree(js, jposes, ts, tposes):
+    assert len(jposes) == len(tposes) == NUM_FRAMES
+    for i, (a, b) in enumerate(zip(jposes, tposes)):
+        assert (a is None) == (b is None), f"frame {i}: one System returned no pose"
+        if a is None:
+            continue
+        dt = np.linalg.norm(a[:, 3] - b[:, 3])
+        dr = _rot_angle(a[:, :3], b[:, :3])
+        # 1e-3 m / 1e-3 rad: f32 sums in another order through LM and BA.
+        assert dt < 1e-3 and dr < 1e-3, f"frame {i}: {dt:.2e} m, {dr:.2e} rad"
+    for (ta, pa), (tb, pb) in zip(js.frame_trajectory(), ts.frame_trajectory()):
+        assert ta == tb
+        assert np.abs(pa - pb).max() < 1e-3
+    assert ts.num_keyframes == js.num_keyframes
+    assert ts.next_kf == js.next_kf
+    n_j, n_t = js.num_landmarks, ts.num_landmarks
+    assert abs(n_t - n_j) <= 0.02 * n_j, (n_t, n_j)
+    assert ts.tracking_state.value == js.tracking_state.value == "Tracking"
+
+
+def test_system_matches_jax():
+    js, jposes = run_jax()
+    ts, tposes, _, _ = run_port_cpu()
+    _assert_systems_agree(js, jposes, ts, tposes)
+    assert js.next_kf >= 3  # local BA ran in both (it starts at the third keyframe)
+
+
+def test_system_went_through_matcher():
+    ts, _, calls, launches = run_port_cpu()
+    chains = ts.next_kf - 1
+    assert ts.num_track_steps == NUM_FRAMES - 1  # the first frame initializes
+    assert calls == 3 * ts.num_track_steps + chains, (calls, ts.num_track_steps, chains)
+    assert launches == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.cuda
+def test_system_launches_kernel_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    js, jposes = run_jax()
+    ts, tposes, calls, launches = run_port("cuda")
+    _assert_systems_agree(js, jposes, ts, tposes)
+    assert launches == calls == 3 * ts.num_track_steps + ts.next_kf - 1
+
+
+def test_system_default_device_needs_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System(_cfg(), **SIZES)
+
+
+@pytest.mark.parametrize("kwargs,camera,item", [
+    (dict(enable_loop_closing=True), TCAM, "A12"),
+    (dict(with_lines=True), TCAM, "A14"),
+    ({}, Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE, **_KW), "A9"),
+    ({}, Camera(setup=CameraSetup.STEREO, model=CameraModel.PERSPECTIVE, **_KW), "A10"),
+    ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.FISHEYE, **_KW), "A15"),
+    ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.EQUIRECTANGULAR, **_KW), "A15"),
+])
+def test_unported_options_raise(kwargs, camera, item):
+    args = {**SIZES, **kwargs, "device": "cpu"}
+    with pytest.raises(NotImplementedError, match=item):
+        System(_cfg(camera), **args)
+
+
+@pytest.mark.parametrize("feed,item", [
+    (lambda s, f: s.feed_monocular_frame(f[0], f[2]), "A9"),
+    (lambda s, f: s.feed_stereo_frame(f[0], f[0], f[2]), "A10"),
+    (lambda s, f: s.feed_RGBD_frame(f[0], f[1], f[2], seg_mask=np.ones_like(f[1])), "A13"),
+], ids=["monocular", "stereo", "seg_mask"])
+def test_unported_feeds_raise(feed, item):
+    slam = System(_cfg(), device="cpu", **SIZES)
+    slam.startup()
+    with pytest.raises(NotImplementedError, match=item):
+        feed(slam, _frames()[0])
+
+
+def test_lost_tracking_raises_relocalization():
+    """A frame that keeps fewer than 30 inliers needs relocalization (A11):
+    a blank frame after initialization."""
+    slam = System(_cfg(), device="cpu", **{**SIZES, "track_lag": 0})
+    slam.startup()
+    img, depth, ts = _frames()[0]
+    slam.feed_RGBD_frame(img, depth, ts)
+    with pytest.raises(NotImplementedError, match="A11"):
+        slam.feed_RGBD_frame(np.zeros_like(img), depth, ts + 1.0 / 30.0)
+
+
+def test_capacity_growth_raises():
+    """A map whose landmark headroom runs out needs map_database.grow (A2)."""
+    pad_to = System(_cfg(), device="cpu", **SIZES).frontend.pad_to
+    slam = System(_cfg(), device="cpu",
+                  **{**SIZES, "max_landmarks": 2 * pad_to + 64, "track_lag": 0})
+    slam.startup()
+    (img0, d0, t0), (img1, d1, t1) = _frames()[:2]
+    slam.feed_RGBD_frame(img0, d0, t0)
+    assert slam.next_lm > 64  # the depth seeds alone use up the headroom
+    with pytest.raises(NotImplementedError, match="A2"):
+        slam.feed_RGBD_frame(img1, d1, t1)
+
+
+@pytest.mark.slow
+def test_rgbd_sequence_ate(rng):
+    """tests/test_system_e2e.py::test_rgbd_sequence_ate on the port."""
+    frames, poses = synthetic_scene.make_sequence(rng, TCAM, num_frames=16)
+    slam = System(_cfg(), max_keyframes=32, max_landmarks=8192, enable_loop_closing=False,
+                  device="cpu")
+    slam.startup()
+    tracked = 0
+    for img, depth, ts in frames:
+        if slam.feed_RGBD_frame(img, depth, ts) is not None:
+            tracked += 1
+    slam.shutdown()
+    assert slam.tracking_state is TrackerState.TRACKING
+    assert tracked >= len(frames) - 1
+    gt = [(float(i) / 30.0, np.concatenate([R, t[:, None]], 1).astype(np.float64))
+          for i, (R, t) in enumerate(poses)]
+    ate = traj_io.ate_rmse(slam.frame_trajectory(), gt, align_scale=False)
+    assert ate < 0.05, f"ATE {ate}"
+    assert slam.num_keyframes >= 2
+    assert slam.num_landmarks > 200
