@@ -8,17 +8,26 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build the fused-matcher kernel (csrc/fused_match.cu) with nvcc;
 3. the kernel against its plain PyTorch version on synthetic inputs at the
    main path's three shapes (dense windows: 90% of the rows active) and on
-   edge cases (all rows masked, ties, ragged sizes): exact equality, and
-   the dense shapes timed beside the plain version;
+   edge cases that reach the kernel's boundaries (all rows masked, no
+   valid keypoint, radius-0 windows hitting exact pixels, ties across
+   keypoint tiles, strips and ring chunks, ragged sizes, more keypoints
+   than stay resident in shared memory): exact equality, and the dense
+   shapes timed beside the plain version, with the kernel's own count of
+   the keypoint tiles it walked and sent to the binary tensor cores (its
+   counting build; every other launch takes the build without counters);
 4. the main path at full width: a 640x480 RGB-D camera, 1000 ORB
    keypoints over 8 levels, 256 keyframes / 32768 landmarks, 40 rendered
    frames with ground truth. Checks tracking state, keyframe and landmark
    counts, ATE < 0.05 m and that every matcher call launched the kernel;
-5. the kernel against its plain version on the inputs the main path gave
-   it at each call site (exact), timed beside the plain version, a bf16
-   bit-plane matmul yardstick and the card's bound. Device times come
-   from torch.profiler's kernel records; one call's time between CUDA
-   events (which adds the launch's host time) is kept beside them;
+5. the kernel against its plain version on every input the main path
+   gave it (all calls, exact), and at each call site its last call timed
+   beside the plain version, a bf16 bit-plane matmul yardstick and the
+   card's bound. Device times come
+   from torch.profiler's kernel records, with the number of records
+   summed; one call's time between CUDA events (which adds the launch's
+   host time) is kept beside them. The inputs timed here are saved to
+   build/fused_match_inputs.pt and timed in a fresh process (see
+   time_in_child), which compare_fused_match.py reads too;
 6. a torch.profiler pass over 8 frames of a fresh run, around its second
    keyframe chain: device operations per frame and per stage, device
    busy share, the heaviest kernels;
@@ -36,6 +45,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,6 +66,12 @@ CALL_SITES = {
 REPLACES = "structure_plp_slam_tpu/ops/pallas_matching.py:42"
 SOURCE = "structure_plp_slam_tpu_torch/csrc/fused_match.cu"
 NUM_FRAMES = 40
+REPS = 20  # calls per profiler session
+# The inputs phase 5 times, saved on the host (for compare_fused_match.py too).
+INPUTS = Path(__file__).resolve().parent / "build" / "fused_match_inputs.pt"
+# Which design of the kernel ran: strips with active-row compaction,
+# shared-memory-resident keypoints, distances on the binary tensor cores.
+DESIGN = "compacted-strips/resident-keypoints/b1-mma"
 
 
 def _fail(msg):
@@ -73,9 +89,10 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def synthetic_inputs(rng, L, N, *, ties=False, masked=False):
+def synthetic_inputs(rng, L, N, kind="dense"):
     """Landmark / keypoint rows in the kernel's layout, from a numpy seed:
-    90% of the rows active with 50-400 px windows (a dense worst case)."""
+    90% of the rows active with 50-400 px windows (a dense worst case),
+    changed as ``kind`` says."""
     desc_lm = rng.integers(0, 2**32, (L, 8), dtype=np.uint32)
     desc_kp = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
     for i in range(0, N, 3):  # near-duplicates so real matches exist
@@ -91,14 +108,27 @@ def synthetic_inputs(rng, L, N, *, ties=False, masked=False):
         rng.uniform(0, 600, N), rng.uniform(0, 600, N),
         np.where(rng.uniform(size=N) < 0.95, rng.integers(0, 4, N), 1e9),
     ], -1).astype(np.float32)
-    if ties:  # every keypoint a copy of a few rows: equal distances everywhere
-        desc_kp = desc_kp[rng.integers(0, 4, N)]
+    if kind in ("ties", "ties_tiles"):  # every keypoint in every window
         kp_meta[:, :2] = 300.0
         kp_meta[:, 2] = 1.0
         lm_meta[:, 2] = 1000.0
         lm_meta[:, 3] = 1.0
-    if masked:
+    if kind == "ties":  # a few distinct descriptors: equal distances everywhere
+        desc_kp = desc_kp[rng.integers(0, 4, N)]
+    elif kind == "ties_tiles":  # each row's copy in three tiles (N >= 3 L)
+        for off in (0, L, 2 * L):
+            desc_kp[off:off + L] = desc_lm
+    elif kind == "masked":
         lm_meta[:, 2] = -1.0
+    elif kind == "kp_invalid":
+        kp_meta[:, 2] = 1e9
+    elif kind == "radius0":  # integer pixels; radius 0, -0.0, NaN or inactive
+        kp_meta[:, :2] = rng.integers(0, 24, (N, 2))
+        kp_meta[:, 2] = rng.integers(0, 2, N)
+        lm_meta[:, :2] = rng.integers(0, 24, (L, 2))
+        lm_meta[:, 3] = rng.integers(0, 2, L)
+        lm_meta[:, 2] = rng.choice(np.array([0.0, -0.0, np.nan, -1.0], np.float32), L,
+                                   p=[0.6, 0.2, 0.1, 0.1])
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).cuda()
@@ -138,11 +168,14 @@ def time_ms(fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(fn, reps=20, warmup=3, attempts=3):
-    """Device milliseconds per call of ``fn``: the durations of the kernels
-    it ran, summed, as torch.profiler (CUPTI) records them, averaged over
-    ``reps`` calls. No host time. A session that comes back without any
-    device record (seen once on a process's first session) is run again."""
+def device_ms(fn, reps=REPS, warmup=3, attempts=3):
+    """Device milliseconds per call of ``fn`` and the number of records
+    behind them: the durations of the kernels it ran, summed, as
+    torch.profiler (CUPTI) records them, averaged over ``reps`` calls. No
+    host time. A session whose record count is not a whole multiple of
+    ``reps`` (none at all, seen on a process's first session, or a record
+    lost) is run again; after ``attempts`` the last one counts, and its
+    record count shows it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,21 +188,34 @@ def device_ms(fn, reps=20, warmup=3, attempts=3):
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
-    raise RuntimeError(f"the profiler recorded no device activity in {attempts} sessions")
+        if kernels and len(kernels) % reps == 0:
+            break
+    if not kernels:
+        raise RuntimeError(f"the profiler recorded no device activity in {attempts} sessions")
+    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3, len(kernels)
+
+
+def time_in_turns(first, second, args):
+    """Two ``(name, fn)`` on the same inputs, timed in turns (first,
+    second, second, first); each keeps its better reading: ``<name>_ms``
+    device time with ``<name>_records`` behind it (a reading with a whole
+    multiple of REPS records beats a lower one that lost records), and
+    ``<name>_call_ms``, one call's event time."""
+    t, rank = {}, {}
+    for name, fn in (first, second, second, first):
+        ms, records = device_ms(lambda: fn(*args))
+        r = (records % REPS != 0, ms)
+        if r < rank.get(name, (True, float("inf"))):
+            rank[name] = r
+            t[f"{name}_ms"], t[f"{name}_records"] = ms, records
+        t[f"{name}_call_ms"] = min(t.get(f"{name}_call_ms", float("inf")),
+                                   time_ms(lambda: fn(*args)))
+    return t
 
 
 def time_pair(fm, args):
-    """Kernel and plain version, run in turns (plain, kernel, kernel,
-    plain); each side keeps its better reading. ``*_ms`` is device time,
-    ``*_call_ms`` the event time of one call."""
-    times = {}
-    for side in ("plain", "kernel", "kernel", "plain"):
-        fn = fm.fused_match if side == "kernel" else fm.fused_match_plain
-        times.setdefault(f"{side}_ms", []).append(device_ms(lambda: fn(*args)))
-        times.setdefault(f"{side}_call_ms", []).append(time_ms(lambda: fn(*args)))
-    return {k: min(v) for k, v in times.items()}
+    """The kernel and its plain version in turns (plain first)."""
+    return time_in_turns(("plain", fm.fused_match_plain), ("kernel", fm.fused_match), args)
 
 
 def bound(fm, args):
@@ -197,6 +243,43 @@ def bound(fm, args):
             n_active, pairs)
 
 
+def measured_tiles(fm, args):
+    """The kernel's own tile counts (walked, sent to the b1 mma) for one
+    call on ``args``, from its counting build."""
+    fm.count_tiles(True)
+    fm.fused_match(*args)
+    return fm.count_tiles(False)
+
+
+def time_saved_inputs():
+    """Phase 5's timings, run by time_in_child: for each call site's saved
+    input, time_pair's numbers and the yardstick, printed as one JSON
+    line."""
+    from structure_plp_slam_tpu_torch.ops import fused_match as fm
+
+    inputs = torch.load(INPUTS)
+    device_ms(lambda: torch.ones(1024, device="cuda").add_(1), reps=2, warmup=1)
+    out = {}
+    for site in CALL_SITES:
+        args = tuple(a.cuda() for a in inputs[site])
+        out[site] = {**time_pair(fm, args), "yardstick_ms": bitplane_yardstick_ms(args)}
+    print(json.dumps(out))
+
+
+def time_in_child():
+    """time_saved_inputs in a fresh process. Once the main path has run,
+    the profiler sessions of this process come back short of kernel
+    records (18-19 of 20 on the H100, or none), while a fresh process's
+    come back whole."""
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.time_saved_inputs()"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900,
+    )
+    if res.returncode != 0:
+        raise RuntimeError(f"phase 5 timing failed:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def bitplane_yardstick_ms(args):
     """A bf16 matmul of the ±1 bit planes: the distance part only, since no
     single PyTorch call computes the fused function."""
@@ -207,7 +290,7 @@ def bitplane_yardstick_ms(args):
                 .to(torch.bfloat16) * 2 - 1).contiguous()
 
     lm_bits, kp_bits = planes(args[0]), planes(args[2])
-    return device_ms(lambda: torch.matmul(lm_bits, kp_bits.T))
+    return device_ms(lambda: torch.matmul(lm_bits, kp_bits.T))[0]
 
 
 def profile_frames(make_system, frames, warm, count):
@@ -347,37 +430,61 @@ def main():
 
     # ---- 3. kernel vs plain on synthetic inputs --------------------------
     rng = np.random.default_rng(0)
-    dense = {}
+    dense, dense_args = {}, {}
     for site, rows in rows_by_site.items():
-        args = synthetic_inputs(rng, rows, N)
+        args = dense_args[site] = synthetic_inputs(rng, rows, N)
         err = check_exact(fm, args, f"dense {site}")
         t = time_pair(fm, args)
         b_ms, b_by, active, pairs = bound(fm, args)
-        dense[site] = {"dense_ms": t["kernel_ms"], "dense_plain_ms": t["plain_ms"],
-                       "dense_bound_ms": b_ms, "dense_bound_by": b_by,
-                       "dense_active_rows": active, "dense_in_window_pairs": pairs}
+        tiles = measured_tiles(fm, args)
+        yard = bitplane_yardstick_ms(args)
+        dense[site] = {"dense_ms": t["kernel_ms"], "dense_records": t["kernel_records"],
+                       "dense_plain_ms": t["plain_ms"],
+                       "dense_call_ms": t["kernel_call_ms"], "dense_yardstick_ms": yard,
+                       "dense_bound_ms": b_ms,
+                       "dense_bound_by": b_by, "dense_active_rows": active,
+                       "dense_in_window_pairs": pairs, "dense_tiles": tiles}
         print(f"kernel == plain: dense {rows}x{N} ({active} active rows, {pairs} in-window "
               f"pairs; max_abs_err {err}): device kernel {t['kernel_ms']:.5f} ms, plain "
-              f"{t['plain_ms']:.5f} ms; one call {t['kernel_call_ms']:.4f} / "
-              f"{t['plain_call_ms']:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
-    for label, L, n, kw in (
-        ("all-masked", 1024, 512, {"masked": True}),
-        ("ties", 512, 300, {"ties": True}),
-        ("ragged", 1001, 777, {}),
-        ("ragged", 13, 5, {}),
+              f"{t['plain_ms']:.5f} ms ({t['kernel_records']} / {t['plain_records']} records); "
+              f"one call {t['kernel_call_ms']:.4f} / {t['plain_call_ms']:.4f} ms; yardstick "
+              f"{yard:.5f} ms; bound {b_ms:.6f} ms ({b_by}); tiles {tiles}")
+    for kind, L, n in (
+        ("masked", 1024, 512),
+        ("kp_invalid", 1032, 1032),
+        ("radius0", 1032, 777),
+        ("ties", 512, 300),
+        ("ties", 1032, 1032),               # ties in every strip
+        ("ties", 1032, 4196),               # ... and across ring chunks (kResident 2048)
+        ("ties_tiles", 100, 333),
+        ("dense", 1001, 777),               # ragged: no multiple of a strip, group or tile
+        ("dense", 13, 5),
+        ("dense", 129, 9),
+        ("dense", 32768, 6000),             # above the shared-memory-resident set
     ):
-        err = check_exact(fm, synthetic_inputs(rng, L, n, **kw), label)
-        print(f"kernel == plain: {label} {L}x{n} (max_abs_err {err})")
+        fm.count_tiles(True)
+        err = check_exact(fm, synthetic_inputs(rng, L, n, kind), f"{kind} {L}x{n}")
+        tiles = fm.count_tiles(False)
+        print(f"kernel == plain: {kind} {L}x{n} (max_abs_err {err}; tiles {tiles})")
+        # The counters themselves: no tile without an active row, no mma
+        # without a valid keypoint, and every tile to the mma where every
+        # keypoint is in every window.
+        if kind == "masked" and tiles["walked"] != 0:
+            raise AssertionError(f"all rows masked, yet {tiles['walked']} tiles walked")
+        if kind == "kp_invalid" and not tiles["mma"] == 0 < tiles["walked"]:
+            raise AssertionError(f"no valid keypoint, tiles {tiles}")
+        if kind.startswith("ties") and not 0 < tiles["mma"] == tiles["walked"]:
+            raise AssertionError(f"{kind}: every tile has a pair in a window, tiles {tiles}")
 
     # ---- 4. main path at full width --------------------------------------
     frames, poses = synthetic_scene.make_sequence(np.random.default_rng(0), cam, NUM_FRAMES)
 
-    # Keep the last inputs of each call site (by row count) for phase 5.
-    recorded = {}
+    # Keep every call's inputs, by call site (row count), for phase 5.
+    recorded = {rows: [] for rows in rows_by_site.values()}
 
     def recording(fn):
         def call(*args):
-            recorded[args[0].shape[0]] = tuple(a.clone() for a in args)
+            recorded[args[0].shape[0]].append(tuple(a.clone() for a in args))
             return fn(*args)
         return call
 
@@ -445,18 +552,28 @@ def main():
         raise AssertionError(f"launches by row count {by_rows} != expected per call site")
 
     # ---- 5. kernel vs plain on the main path's own inputs -----------------
+    # The last call at each site (and the dense fuse-sized input, for
+    # compare_fused_match.py) saved on the host, and timed in a fresh process.
+    timed = {site: recorded[rows][-1] for site, rows in rows_by_site.items()}
+    timed[f"dense {rows_by_site['fuse']}x{N}"] = dense_args["fuse"]
+    torch.save({k: tuple(a.cpu() for a in v) for k, v in timed.items()}, INPUTS)
+    times = time_in_child()
     kernels = []
     for site, rows in rows_by_site.items():
-        args = recorded[rows]
-        err = check_exact(fm, args, site)
-        t = time_pair(fm, args)
-        yard = bitplane_yardstick_ms(args)
+        err = max(check_exact(fm, a, f"{site} call {k}") for k, a in enumerate(recorded[rows]))
+        print(f"kernel == plain: {site}, all {len(recorded[rows])} main-path calls "
+              f"(max_abs_err {err})")
+        args = recorded[rows][-1]
+        t = times[site]
+        yard = t["yardstick_ms"]
         bound_ms, bound_by, active, pairs = bound(fm, args)
+        tiles = measured_tiles(fm, args)
         print(f"{site}: {rows}x{N} ({active} active rows, {pairs} in-window pairs): device "
-              f"kernel {t['kernel_ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bf16 bit-plane "
+              f"kernel {t['kernel_ms']:.5f} ms, plain {t['plain_ms']:.5f} ms ("
+              f"{t['kernel_records']} / {t['plain_records']} records), bf16 bit-plane "
               f"matmul yardstick {yard:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); one call "
               f"{t['kernel_call_ms']:.4f} / {t['plain_call_ms']:.4f} ms; launches "
-              f"{launches_by_site[site]}")
+              f"{launches_by_site[site]}; tiles {tiles}")
         kernels.append({
             "name": f"fused_match@{site}",
             "route": "cuda",
@@ -465,6 +582,7 @@ def main():
             "launches": launches_by_site[site],
             "max_abs_err": err,
             "ms": t["kernel_ms"],
+            "records": t["kernel_records"],
             "plain_ms": t["plain_ms"],
             "call_ms": t["kernel_call_ms"],
             "plain_call_ms": t["plain_call_ms"],
@@ -476,6 +594,8 @@ def main():
             "shape": [rows, N],
             "active_rows": active,
             "in_window_pairs": pairs,
+            "design": DESIGN,
+            "tiles": tiles,
             "call_site": CALL_SITES[site],
             **dense[site],
         })

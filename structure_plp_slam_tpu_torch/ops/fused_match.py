@@ -20,6 +20,7 @@ Layout. The TPU's 128-lane meta blocks and 512-row padding are gone:
 with nvcc for sm_90a at first use into ``build/kernels/``, loaded with
 ctypes) and takes :func:`fused_match_plain` only for CPU tensors. The
 kernel is built and loaded inside the launching call, never at import.
+The three outputs are views of one ``[3, L]`` buffer.
 """
 
 from __future__ import annotations
@@ -106,6 +107,8 @@ def _load():
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            lib.fused_match_count_tiles.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            lib.fused_match_count_tiles.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -124,13 +127,14 @@ def fused_match(lm_desc, lm_meta, kp_desc, kp_meta):
     """Run the fused matcher (layouts in the module docstring). CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
     fused_match.calls += 1
-    if lm_desc.device.type == "cpu":
+    dev = lm_desc.device
+    if dev.type == "cpu":
         return fused_match_plain(lm_desc, lm_meta, kp_desc, kp_meta)
-    if lm_desc.device.type != "cuda":
-        raise ValueError(f"fused_match: unsupported device {lm_desc.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"fused_match: unsupported device {dev}")
     for name, t in (("lm_meta", lm_meta), ("kp_desc", kp_desc), ("kp_meta", kp_meta)):
-        if t.device != lm_desc.device:
-            raise ValueError(f"fused_match: {name} is on {t.device}, not {lm_desc.device}")
+        if t.device != dev:
+            raise ValueError(f"fused_match: {name} is on {t.device}, not {dev}")
     _check("lm_desc", lm_desc, torch.int32, 8)
     _check("lm_meta", lm_meta, torch.float32, 4)
     _check("kp_desc", kp_desc, torch.int32, 8)
@@ -138,22 +142,35 @@ def fused_match(lm_desc, lm_meta, kp_desc, kp_meta):
     L, N = lm_desc.shape[0], kp_desc.shape[0]
     if lm_meta.shape[0] != L or kp_meta.shape[0] != N:
         raise ValueError("fused_match: desc and meta row counts differ")
-    best = torch.empty((L,), dtype=torch.float32, device=lm_desc.device)
-    second = torch.empty_like(best)
-    idx = torch.empty((L,), dtype=torch.int32, device=lm_desc.device)
-    lib = _load()
-    with torch.cuda.device(lm_desc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_match_launch(
-            lm_desc.data_ptr(), lm_meta.data_ptr(), kp_desc.data_ptr(),
-            kp_meta.data_ptr(), best.data_ptr(), second.data_ptr(),
-            idx.data_ptr(), L, N, stream,
-        )
-    if err != 0:
+    out = torch.empty((3, L), dtype=torch.float32, device=dev)
+    ptr = out.data_ptr()
+    args = (lm_desc.data_ptr(), lm_meta.data_ptr(), kp_desc.data_ptr(), kp_meta.data_ptr(),
+            ptr, ptr + 4 * L, ptr + 8 * L, L, N)
+    launch = (_lib or _load()).fused_match_launch
+    if dev.index == torch.cuda.current_device():
+        err = launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:  # the kernel's own limits (e.g. N > 2**21) come back as errors
         raise RuntimeError(f"fused_match kernel launch failed: cudaError {err}")
     fused_match.launches += 1
     fused_match.launches_by_rows[L] += 1
-    return best, second, idx
+    return out[0], out[1], out[2].view(torch.int32)
+
+
+def count_tiles(on: bool) -> dict:
+    """Have the kernel launches that follow count their tiles (``on``) or
+    not, and return what the launches on the current device counted since
+    the last switch: the 8-keypoint tiles their warps walked, and those
+    sent to the binary tensor cores (a pair in a window). The counting
+    build is the same source with the counters in; it waits for the
+    device first."""
+    buf = (ctypes.c_ulonglong * 2)()
+    err = _load().fused_match_count_tiles(int(on), buf)
+    if err != 0:
+        raise RuntimeError(f"fused_match tile counts failed: cudaError {err}")
+    return {"walked": buf[0], "mma": buf[1]}
 
 
 # Counters read by chip_smoke.py and the tests to show that the main path

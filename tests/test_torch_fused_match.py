@@ -41,6 +41,26 @@ def _setup(rng, L, N, kind="random"):
     ], -1).astype(np.float32)
     if kind == "masked":
         lm_meta[:, 2] = -1.0
+    elif kind == "kp_invalid":
+        kp_meta[:, 2] = 1e9
+    elif kind == "radius0":
+        # Integer pixels on a 24 x 24 grid, so several keypoints share a
+        # pixel; radius 0 (and -0.0) admits exactly those, a NaN radius none.
+        kp_meta[:, :2] = rng.integers(0, 24, (N, 2))
+        kp_meta[:, 2] = rng.integers(0, 2, N)
+        lm_meta[:, :2] = rng.integers(0, 24, (L, 2))
+        lm_meta[:, 3] = rng.integers(0, 2, L)
+        lm_meta[:, 2] = rng.choice(np.array([0.0, -0.0, np.nan, -1.0], np.float32), L,
+                                   p=[0.6, 0.2, 0.1, 0.1])
+    elif kind == "ties_tiles":
+        # Each row's nearest descriptor at three columns in three different
+        # 8-keypoint tiles, everything in every window: best ties across
+        # tiles, so argmin must be the first column and second == best.
+        for c_off in (0, L, 2 * L):  # needs N >= 3 L
+            desc_kp[c_off:c_off + L] = desc_lm
+        kp_meta[:, :2] = 300.0
+        kp_meta[:, 2] = 1.0
+        lm_meta[:, 2:] = (1000.0, 1.0)
     elif kind == "ties":
         # Few distinct descriptors, every keypoint in every window: equal
         # distances everywhere, so argmin must pick the lowest index and
@@ -89,6 +109,15 @@ CASES = [
     ("ties", 512, 300),
     ("random", 1000, 700),   # ragged: not multiples of 512
     ("random", 37, 5),
+    # The CUDA kernel's boundaries: radius-0 windows, no valid keypoint,
+    # ties across 8-keypoint tiles, rows and keypoints that fill no strip,
+    # 16-row group or tile, and more keypoints than stay resident in
+    # shared memory (the kernel's chunked ring).
+    ("radius0", 300, 777),
+    ("kp_invalid", 256, 128),
+    ("ties_tiles", 100, 333),
+    ("random", 129, 9),
+    ("random", 64, 2053),    # above kResident = 2048 in csrc/fused_match.cu
 ]
 
 
@@ -102,6 +131,14 @@ def test_plain_equals_reference(kind, L, N):
         assert (port[0] == 1024).all() and (port[1] == 1024).all() and (port[2] == 0).all()
     if kind == "ties":
         assert (port[1] == port[0]).all()
+    if kind == "kp_invalid":
+        assert (port[0] == 1024).all() and (port[1] == 1024).all() and (port[2] == 0).all()
+    if kind == "radius0":
+        assert 20 < (port[0] < 1024).sum() < L  # exact-pixel hits, and rows with none
+    if kind == "ties_tiles":
+        # Row i's copies sit at columns i, L + i and 2 L + i.
+        assert (port[0] == 0).all() and (port[1] == 0).all()
+        assert (port[2] == np.arange(L)).all()
     if kind == "random" and L >= 512:
         assert (port[0] < 1024).sum() > 50  # real matches exist
 
@@ -199,7 +236,7 @@ def test_cpu_wrapper_takes_plain_version():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,L,N", CASES + [("random", 32768, 1032)])
+@pytest.mark.parametrize("kind,L,N", CASES + [("random", 32768, 1032), ("random", 32768, 6000)])
 def test_kernel_equals_plain_on_card(kind, L, N):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of it, and nothing in chip_smoke.py,
-imports JAX or the JAX package.
+"""The port stands alone: no module of it, and nothing in chip_smoke.py or
+compare_fused_match.py, imports JAX or the JAX package.
 
 Two checks: every module of the port imports in a fresh interpreter where
 ``import jax`` fails, and an AST scan finds no import of ``jax`` or of
@@ -16,7 +16,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "structure_plp_slam_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "compare_fused_match.py"]
 
 
 def _module_names():
