@@ -1,6 +1,6 @@
 """Per-frame feature frontend: image -> padded feature dict.
 
-Port of the mono and RGB-D paths of structure_plp_slam_tpu/models/
+Port of the mono, RGB-D and stereo paths of structure_plp_slam_tpu/models/
 frontend.py (reference data::frame construction, frame.h:87-164). One
 call per frame produces the fixed-capacity feature tensors the MapState
 stores per keyframe:
@@ -10,7 +10,7 @@ stores per keyframe:
   desc [N,8] int32                       bearing [N,3]
   valid [N] bool                         response [N]
 
-Stereo and line features wait for ROADMAP A10 / A14.
+Line features wait for ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ import torch
 
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.ops import image as image_ops
+from structure_plp_slam_tpu_torch.ops import matching
 from structure_plp_slam_tpu_torch.ops import orb as orb_ops
+from structure_plp_slam_tpu_torch.ops import stereo as stereo_ops
 from structure_plp_slam_tpu_torch.utils.types import rdiv, resolve_device
 
 
@@ -86,6 +88,25 @@ class Frontend:
             has_depth, out["xy"][:, 0] - rdiv(cam.focal_x_baseline, safe_d), -1.0
         )
         out["depth"] = torch.where(has_depth, d, torch.zeros_like(d))
+        return out
+
+    def stereo(self, img_left, img_right, mask=None):
+        """Rectified stereo pair: left features plus disparity-derived depth
+        (reference frame.cc stereo ctor: ORB on both images, then
+        match::stereo). Line features wait for ROADMAP A14."""
+        out = self._base(img_left, self._eff_mask(mask))
+        gray_l = image_ops.to_grayscale(img_left, device=self.device)
+        gray_r = image_ops.to_grayscale(img_right, device=self.device)
+        feats_r = self.extractor(gray_r)
+        xr, depth, ok = stereo_ops.match_stereo(
+            gray_l, gray_r, out.pop("_xy_raw"), out["level"],
+            matching.unpack_desc_bits(out["desc"]), out["valid"],
+            self._pad(feats_r["xy"]), self._pad(feats_r["level"]),
+            matching.unpack_desc_bits(self._pad(feats_r["desc"])),
+            self._pad(feats_r["valid"]), self.scale_factors,
+            focal_x_baseline=self.camera.focal_x_baseline,
+        )
+        out["xr"], out["depth"] = xr, depth  # -1 / 0 where unmatched
         return out
 
     def _pad(self, t):

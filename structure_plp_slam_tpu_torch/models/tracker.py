@@ -157,10 +157,7 @@ def track_frame(camera, state: ms.MapState, feats, R_pred, t_pred, last_kp_lm,
         matching.unpack_desc_bits(state.kf_desc[prev_ref_kf]),
         kp_valid, ref_has,
     )
-    best_r = torch.argmin(d_ref, dim=1)
-    best_rd = torch.gather(d_ref, 1, best_r[:, None])[:, 0]
-    rev_r = torch.argmin(d_ref, dim=0)
-    ok_r = (best_rd <= 50) & (rev_r[best_r] == torch.arange(N, device=dev))
+    best_r, ok_r = matching.mutual_best(d_ref, 50)
     kp_lm_f0 = torch.where(ok_r, ref_lm_prev[best_r], -1)
 
     # The three strategies as ONE batched LM (shorter 2x8 schedule).

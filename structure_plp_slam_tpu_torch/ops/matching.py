@@ -7,14 +7,22 @@ matmul of the bit planes gives every Hamming distance exactly (integer
 sums of at most 256 terms; TF32 is off package-wide). The per-frame
 tracker and the keyframe fuse go through the fused matcher
 (ops/fused_match.py) instead; these functions are its plain-path
-counterparts and serve the descriptor-only matches.
+counterparts and serve the descriptor-only matches. ``match_in_area``
+and the rotation histogram serve monocular initialization.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from structure_plp_slam_tpu_torch.utils.types import HAMMING_MASKED
+from structure_plp_slam_tpu_torch.utils.types import HAMMING_MASKED, topk_stable
+
+# Rotation-consistency histogram (reference match::angle_checker): bins,
+# and how many of the most popular keep their matches.
+ANGLE_BINS = 30
+KEEP_BINS = 3
 
 
 def unpack_desc_bits(desc):
@@ -78,6 +86,63 @@ def match_by_projection(pred_uv, pred_level, lm_bits, lm_valid, kp_xy, kp_level,
     d = distance_matrix_planes(lm_bits, kp_bits, lm_valid, kp_valid)
     return _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level,
                           radius_by_level, max_hamming, ratio, level_window)
+
+
+def mutual_best(d, max_hamming: int):
+    """Each row's best column of a distance matrix ``d [N, M]`` (lowest
+    index on ties) and whether it is kept: within ``max_hamming`` and the
+    row is that column's best too. Returns ``(best [N], ok [N])``."""
+    best = torch.argmin(d, dim=1)
+    best_d = torch.gather(d, 1, best[:, None])[:, 0]
+    rev = torch.argmin(d, dim=0)
+    return best, (best_d <= max_hamming) & (rev[best] == torch.arange(d.shape[0], device=d.device))
+
+
+def match_in_area(kp_xy_1, kp_angle_1, kp_bits_1, kp_valid_1, kp_xy_2, kp_angle_2,
+                  kp_bits_2, kp_valid_2, *, window: float = 100.0, max_hamming: int = 50,
+                  ratio: float = 0.9):
+    """2D-2D windowed matching for monocular initialization (reference
+    match::area::match_in_consistent_area): frame-1 keypoints match
+    frame-2 keypoints inside a square window around their own
+    coordinates, Lowe-ratio tested, kept only when mutually best, then
+    filtered by the rotation histogram. Returns ``idx_2_for_1 [N1]``
+    (-1 for unmatched). The equirectangular wrap waits for ROADMAP A15."""
+    d = distance_matrix_planes(kp_bits_1, kp_bits_2, kp_valid_1, kp_valid_2)
+    dx = torch.abs(kp_xy_1[:, 0:1] - kp_xy_2[None, :, 0])
+    dy = torch.abs(kp_xy_1[:, 1:2] - kp_xy_2[None, :, 1])
+    d = torch.where((dx <= window) & (dy <= window), d, HAMMING_MASKED)
+
+    rows = torch.arange(d.shape[0], device=d.device)
+    best = torch.argmin(d, dim=1)  # lowest index on ties, as jnp.argmin
+    best_d = torch.gather(d, 1, best[:, None])[:, 0]
+    masked = d.clone()
+    masked[rows, best] = HAMMING_MASKED
+    second = torch.amin(masked, dim=1)
+    ok = (best_d <= max_hamming) & (
+        best_d.to(torch.float32) <= ratio * second.to(torch.float32)
+    )
+    # Mutual best only (stronger than the reference's last-writer dedup).
+    best_rev = torch.argmin(d, dim=0)
+    ok = ok & (best_rev[best] == rows)
+    return filter_by_rotation_histogram(torch.where(ok, best, -1), kp_angle_1, kp_angle_2)
+
+
+def filter_by_rotation_histogram(matches, angle_1, angle_2):
+    """Keep matches whose orientation difference falls in one of the
+    KEEP_BINS most popular histogram bins; the lower bin wins a tie, as
+    ``lax.top_k``."""
+    valid = matches >= 0
+    dtheta = angle_1 - angle_2[torch.clamp(matches, 0, angle_2.shape[0] - 1)]
+    # jnp.mod: C fmod, then shifted into the divisor's sign.
+    two_pi = 2.0 * math.pi
+    r = torch.fmod(dtheta, two_pi)
+    dtheta = torch.where(r < 0, r + two_pi, r)
+    bins = torch.clamp((dtheta * (ANGLE_BINS / two_pi)).to(torch.int64), 0, ANGLE_BINS - 1)
+    hist = torch.zeros((ANGLE_BINS,), dtype=torch.int64, device=matches.device)
+    hist.index_add_(0, bins, valid.to(torch.int64))
+    _, top = topk_stable(hist, KEEP_BINS)
+    in_top = (bins[:, None] == top[None, :]).any(dim=1)
+    return torch.where(valid & in_top, matches, -1)
 
 
 def predict_scale_level(dist, max_dist, scale_factor: float, num_levels: int):

@@ -1,8 +1,11 @@
-"""System facade: the public API of the port (RGB-D point slice).
+"""System facade: the public API of the port (point landmarks).
 
-Port of structure_plp_slam_tpu/system.py for RGB-D tracking and mapping
-with point landmarks (reference PLPSLAM::system, src/PLPSLAM/system.cc):
-feed frames with ``feed_RGBD_frame``, read trajectories back. Each frame
+Port of structure_plp_slam_tpu/system.py for monocular, stereo and RGB-D
+tracking and mapping with point landmarks (reference PLPSLAM::system,
+src/PLPSLAM/system.cc): feed frames with ``feed_monocular_frame``,
+``feed_stereo_frame`` or ``feed_RGBD_frame``, read trajectories back.
+Stereo and RGB-D start from depth; a monocular map starts from two views
+(``models/initializer.py``). Each frame
 runs the frontend, then ``_track_step`` (motion-model prediction,
 tracking, landmark statistics, decision packing); the host-side decisions
 (lost check, keyframe insertion, trajectory record) trail the device by
@@ -10,12 +13,17 @@ tracking, landmark statistics, decision packing); the host-side decisions
 that vector comes back through a pinned non-blocking copy and a CUDA
 event, so the copy overlaps the next frames' work. A keyframe runs the
 whole mapping chain (``_kf_chain``) as one Python function with no host
-sync inside.
+sync inside. A frame that keeps fewer than 30 inliers is Lost and goes to
+the relocalizer; map capacities double just before an insertion would
+hit them (``data/map_database.grow``).
 
-What this slice does not port raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: monocular and stereo feeds, loop closing,
-lines, segmentation masks (planes), relocalization, capacity growth and
-non-perspective cameras.
+Random draws (mono init, relocalization) follow the JAX System's key
+sequence from ``seed`` (``utils/prng``): one key per mono init attempt,
+per keyframe and per lost frame.
+
+What the port does not have yet raises ``NotImplementedError`` naming the
+ROADMAP item that brings it: loop closing, lines, segmentation masks
+(planes) and non-perspective cameras.
 
 Usage:
     slam = System(config, enable_loop_closing=False)   # device="cuda"
@@ -42,11 +50,15 @@ import torch
 from structure_plp_slam_tpu_torch.camera import CameraSetup
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.config import Config
+from structure_plp_slam_tpu_torch.data import map_database
 from structure_plp_slam_tpu_torch.data import map_state as ms
+from structure_plp_slam_tpu_torch.data.bow import BowIndex
 from structure_plp_slam_tpu_torch.io import trajectory as traj_io
 from structure_plp_slam_tpu_torch.models import frontend as frontend_mod
-from structure_plp_slam_tpu_torch.models import mapper, tracker
+from structure_plp_slam_tpu_torch.models import initializer, mapper, tracker
+from structure_plp_slam_tpu_torch.models.relocalizer import Relocalizer
 from structure_plp_slam_tpu_torch.ops import orb as orb_ops
+from structure_plp_slam_tpu_torch.utils import prng
 from structure_plp_slam_tpu_torch.utils.types import resolve_device, round_up
 
 _log = logging.getLogger("plpslam.torch.system")
@@ -54,6 +66,11 @@ _log = logging.getLogger("plpslam.torch.system")
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _no_seg_mask(seg_mask):
+    if seg_mask is not None:
+        raise _not_ported("segmentation masks (planar mapping)", "A13")
 
 
 class StageTimer:
@@ -238,6 +255,7 @@ class System:
         *,
         max_keyframes: int = 256,
         max_landmarks: int = 32768,
+        seed: int = 0,
         enable_mapping: bool = True,
         enable_loop_closing: bool = True,
         with_lines: bool = False,
@@ -254,9 +272,6 @@ class System:
         if with_lines:
             raise _not_ported("line tracking", "A14")
         cam_base.dispatch(config.camera)  # non-perspective models raise (A15)
-        if config.camera.setup is not CameraSetup.RGBD:
-            item = "A9" if config.camera.setup is CameraSetup.MONOCULAR else "A10"
-            raise _not_ported(f"the {config.camera.setup.value} setup", item)
         self.device = resolve_device(device)
         self.timer = StageTimer(synced=verbose_timing, device=self.device)
         self.auto_grow = bool(auto_grow)
@@ -271,6 +286,12 @@ class System:
         self.min_kf_interval = min_kf_interval
         self.config = config
         self.camera = config.camera
+        # The spatially coherent consensus for the mono-init H/E races
+        # (GC-RANSAC, initialize/perspective.cc:70-85), by its own YAML key.
+        self.init_graph_cut = bool(config.raw.get("Initializer.use_graph_cut", False))
+        self.key = prng.PRNGKey(seed)
+        self.relocalizer = Relocalizer(config.camera, BowIndex())
+        self.num_relocalizations = 0
         cap = round_up(
             orb_ops.OrbExtractor(config.camera.rows, config.camera.cols, config.orb).capacity,
             8,
@@ -331,32 +352,48 @@ class System:
                                      device=self.device)
         self.ref_kf = 0
         self._ref_kf_dev = 0
-        # (timestamp, reference keyframe, pose relative to it) per frame;
-        # every recorded frame was tracked (a lost frame raises, ROADMAP A11).
-        self._frame_stats: List[Tuple[float, int, np.ndarray]] = []
+        # (timestamp, reference keyframe, pose relative to it, lost) per frame.
+        self._frame_stats: List[Tuple[float, int, np.ndarray, bool]] = []
         self._init_frame_count = self.num_frames
         self._ind_cache = None
+        # The monocular init's first frame (kept until two views succeed).
+        self._init_feats = None
+        self._init_ts = None
 
     # ------------------------------------------------------------------
     # Frame feeding (reference: system::feed_*_frame).
     # ------------------------------------------------------------------
     def feed_monocular_frame(self, img, timestamp: float, mask=None, seg_mask=None):
-        raise _not_ported("monocular tracking", "A9")
+        """Track one monocular frame (see :meth:`feed_RGBD_frame`)."""
+        _no_seg_mask(seg_mask)
+        with self.timer.stage("frontend"):
+            feats = self.frontend.mono(img, mask=mask)
+        return self._track(feats, timestamp)
 
     def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None,
                           seg_mask=None):
-        raise _not_ported("stereo tracking", "A10")
+        """Track one rectified stereo pair (see :meth:`feed_RGBD_frame`);
+        ``ops/rectify.StereoRectifier`` rectifies a raw pair first."""
+        _no_seg_mask(seg_mask)
+        with self.timer.stage("frontend"):
+            feats = self.frontend.stereo(img_left, img_right, mask=mask)
+        return self._track(feats, timestamp)
 
     def feed_RGBD_frame(self, img, depthmap, timestamp: float, mask=None,
                         seg_mask=None):
         """Track one RGB-D frame; returns the tracked world->camera pose
-        ``[3, 4]`` (a device tensor), or None before initialization.
-        ``mask``: optional [H, W] extraction mask, 0 = ignore."""
-        if seg_mask is not None:
-            raise _not_ported("segmentation masks (planar mapping)", "A13")
+        ``[3, 4]`` (a device tensor), or None before initialization and,
+        with ``track_lag=0``, for a lost frame. ``mask``: optional [H, W]
+        extraction mask, 0 = ignore."""
+        _no_seg_mask(seg_mask)
         with self.timer.stage("frontend"):
             feats = self.frontend.rgbd(img, depthmap, mask=mask)
         return self._track(feats, timestamp)
+
+    def _split_key(self):
+        """The next key of the JAX System's sequence (``_split_key``)."""
+        self.key, k = prng.split(self.key)
+        return k
 
     def _track(self, feats, ts: float):
         if not self._running:
@@ -399,15 +436,22 @@ class System:
         entry = _PendingFrame(packed=packed, ready=ready, feats=feats, ts=ts, res=res,
                               frames_since_kf=self.frames_since_kf)
         self._pending.append(entry)
+        cur_ok = True
         while len(self._pending) > self.track_lag:
-            self._consume(self._pending.popleft())
+            oldest = self._pending.popleft()
+            ok = self._consume(oldest)
+            if oldest is entry:
+                cur_ok = ok
+        if not cur_ok:
+            return None  # track_lag == 0 and this frame was lost
         return torch.cat([res.R, res.t[:, None]], 1)
 
     # ------------------------------------------------------------------
     def _consume(self, entry: _PendingFrame) -> bool:
-        """Apply a fed frame's deferred host-side decisions: lost check,
-        capacity check, keyframe decision + insertion, trajectory record
-        (tracking_module.cc:651-657, keyframe_inserter.cc:54-114)."""
+        """Apply a fed frame's deferred host-side decisions: lost check and
+        relocalization, capacity growth, keyframe decision + insertion,
+        trajectory record (tracking_module.cc:651-657,
+        keyframe_inserter.cc:54-114). Returns False if the frame was lost."""
         with self.timer.stage("decision_fetch"):
             if entry.ready is not None:
                 entry.ready.synchronize()
@@ -422,20 +466,19 @@ class System:
         ts = entry.ts
 
         # Reference acceptance: local-map tracking must keep >= 30 inliers;
-        # below that the JAX package declares Lost and relocalizes.
+        # below that the pose is unreliable: Lost, and relocalize.
         if num_tracked < 30:
-            raise _not_ported(
-                f"relocalization (tracking lost at t={ts:.3f}, {num_tracked} inliers)",
-                "A11",
-            )
+            return self._lost(entry, ts, ref_kf_host, rel, num_tracked)
         self._tracking_state = TrackerState.TRACKING
         self.ref_kf = ref_kf_host
 
-        if self.enable_mapping and self.auto_grow and (
-            self.next_kf >= self.max_keyframes - 1
-            or next_lm_host >= self.max_landmarks - 2 * self.frontend.pad_to
-        ):
-            raise _not_ported("map capacity growth (map_database.grow)", "A2")
+        # Capacity growth just before the walls (the reference's map grows
+        # without bound; here capacities double).
+        if self.enable_mapping and self.auto_grow:
+            if self.next_kf >= self.max_keyframes - 1:
+                self._grow(grow_kf=True)
+            if next_lm_host >= self.max_landmarks - 2 * self.frontend.pad_to:
+                self._grow(grow_lm=True)
 
         # Keyframe decision (keyframe_inserter.cc:54-114): condition B
         # (enough matches, and the tracked share of the reference's
@@ -443,7 +486,8 @@ class System:
         # insertion) with A1/A2/A3, or the A1 interval force.
         if self.enable_mapping and self.next_kf < self.max_keyframes:
             lm_headroom = next_lm_host < self.max_landmarks - 2 * self.frontend.pad_to
-            close_needed = n_close_trk < 100 and n_close_untrk > 70
+            close_needed = (self.camera.setup is not CameraSetup.MONOCULAR
+                            and n_close_trk < 100 and n_close_untrk > 70)
             cond_b = num_tracked >= 15 and (
                 num_tracked < 0.9 * max(ref_tracked, 1) or close_needed
             )
@@ -460,13 +504,64 @@ class System:
                 with self.timer.stage("keyframe"):
                     self._insert_keyframe(entry)
 
-        self._frame_stats.append((ts, ref_kf_host, rel))
+        self._frame_stats.append((ts, ref_kf_host, rel, False))
         return True
+
+    def _lost(self, entry: _PendingFrame, ts, ref_kf_host, rel, num_tracked) -> bool:
+        """A lost frame: relocalize against the map; on failure auto-reset
+        a young map (tracking_module.cc:506-513: lost within ~5 s of init)
+        or record the frame as lost."""
+        self._tracking_state = TrackerState.LOST
+        _log.info("tracking lost at t=%.3f (%d inliers); relocalizing", ts, num_tracked)
+        params = self.frontend.extractor.params
+        with self.timer.stage("relocalize"):
+            out = self.relocalizer.relocalize(
+                self._state, entry.feats, self.frontend.inv_sigma_sq, self._split_key(),
+                obs_indicator=self._obs_indicator(), num_levels=params.num_levels,
+                scale_factor=params.scale_factor,
+            )
+        if out is None:
+            if (self.enable_mapping and self.next_kf <= 3
+                    and self.num_frames - self._init_frame_count < 5.0 * self.camera.fps):
+                _log.warning("lost on a young map; auto-reset")
+                self.reset()
+                return False
+            self._frame_stats.append((ts, ref_kf_host, rel, True))
+            return False
+        R_r, t_r, kp_lm_r, ref = out
+        self.num_relocalizations += 1
+        _log.info("relocalized against keyframe %d", ref)
+        dev = self.device
+        self.pose = (R_r, t_r)
+        self.vel = (torch.eye(3, dtype=torch.float32, device=dev),
+                    torch.zeros((3,), dtype=torch.float32, device=dev))
+        self.last_kp_lm = kp_lm_r
+        self.ref_kf = ref
+        self._ref_kf_dev = ref
+        self._tracking_state = TrackerState.TRACKING
+        # Frames fed after this one tracked from the pre-relocalization
+        # pose; drop their pending decisions.
+        while self._pending:
+            e = self._pending.popleft()
+            self._frame_stats.append((e.ts, ref, np.eye(3, 4, dtype=np.float32), True))
+        self._record_frame(ts)
+        return True
+
+    def _grow(self, **kw):
+        """Double the selected map capacities (slot ids stay)."""
+        _log.info("growing map capacities: %s", ", ".join(sorted(kw)))
+        self._state = map_database.grow(self._state, **kw)
+        self.max_keyframes = self._state.kf_pose.shape[0]
+        self.max_landmarks = self._state.lm_pos.shape[0]
+        self._ind_cache = None
 
     # ------------------------------------------------------------------
     def _initialize(self, feats, ts: float) -> bool:
-        """RGB-D starts from depth: the first frame with >= 30 depth seeds
-        becomes keyframe 0 at the origin."""
+        """Stereo and RGB-D start from depth: the first frame with >= 30
+        depth seeds becomes keyframe 0 at the origin. A monocular map starts
+        from two views (:meth:`_initialize_mono`)."""
+        if self.camera.setup is CameraSetup.MONOCULAR:
+            return self._initialize_mono(feats, ts)
         dev = self.device
         pose = torch.cat([torch.eye(3, device=dev), torch.zeros((3, 1), device=dev)], 1)
         self._state, created = mapper.insert_keyframe(
@@ -492,6 +587,67 @@ class System:
         self._ind_cache = None
         return True
 
+    def _initialize_mono(self, feats, ts: float) -> bool:
+        """Two-view initialization (initializer.cc): keep a first frame with
+        >= 100 keypoints, try each later frame against it; on success both
+        become keyframes, the triangulated points landmarks at median
+        depth 1, and a two-view BA refines them."""
+        if self._init_feats is None:
+            if int(feats["valid"].sum()) >= 100:
+                self._init_feats, self._init_ts = feats, ts
+            return False
+        res = initializer.try_initialize_mono(
+            self.camera, self._init_feats, feats, self._split_key(),
+            coherent=self.init_graph_cut,
+        )
+        if not bool(res.success):
+            # Keep the first frame while it still matches well (the failure
+            # is then low parallax, which more baseline fixes); restart from
+            # this frame only when the matches ran out.
+            if int(res.num_matches) < 50 and int(feats["valid"].sum()) >= 100:
+                self._init_feats, self._init_ts = feats, ts
+            return False
+
+        pts, t2, _ = initializer.scale_to_median_depth(res.points_w, res.point_ok, res.t_2w)
+        f1 = self._init_feats
+        dev = self.device
+        N = self.frontend.pad_to
+        count = int(res.point_ok.sum())
+        slots = torch.cumsum(res.point_ok.to(torch.int64), 0) - 1  # compact ids
+        lm1 = torch.where(res.point_ok, slots, -1)
+        lm2 = torch.full((N,), -1, dtype=torch.int64, device=dev)
+        lm2[torch.clamp(res.matches, 0, N - 1)[res.point_ok]] = slots[res.point_ok]
+        eye = torch.eye(3, dtype=torch.float32, device=dev)
+        pose1 = torch.cat([eye, torch.zeros((3, 1), dtype=torch.float32, device=dev)], 1)
+        pose2 = torch.cat([res.R_2w, t2[:, None]], 1)
+        st = ms.add_keyframe(self._state, 0, pose1, self._init_ts, f1, lm1)
+        st = ms.add_keyframe(st, 1, pose2, ts, feats, lm2)
+
+        dist = torch.linalg.norm(pts, dim=-1)
+        params = self.frontend.extractor.params
+        sf, nlv = params.scale_factor, params.num_levels
+        dist_max = dist * torch.pow(sf, f1["level"].to(torch.float32))
+        dist_min = dist_max / (sf ** (nlv - 1))
+        view = pts / torch.clamp(dist[:, None], min=1e-9)
+        st = ms.add_landmarks(st, slots, pts, f1["desc"], view, dist_min, dist_max,
+                              torch.zeros((N,), dtype=torch.int64, device=dev), res.point_ok)
+        self.next_kf = 2
+        self.next_lm = count
+        # The two-view BA (initializer.cc:306-307 runs global BA).
+        self._state, _ = mapper.local_ba(self.camera, st, 1, self.frontend.inv_sigma_sq,
+                                         max_opt=4, max_fix=4, max_lms=4096)
+        self.pose = (res.R_2w, t2)
+        self.vel = (eye, torch.zeros((3,), dtype=torch.float32, device=dev))
+        self.last_kp_lm = self._state.kf_lm_idx[1]
+        self.ref_kf = 1
+        self._ref_kf_dev = 1
+        self._tracking_state = TrackerState.TRACKING
+        self.frames_since_kf = 0
+        self._init_feats = None
+        self._init_frame_count = self.num_frames
+        self._ind_cache = None
+        return True
+
     # ------------------------------------------------------------------
     def _insert_keyframe(self, entry: _PendingFrame):
         """Run the keyframe chain on the frame and publish its results."""
@@ -499,6 +655,9 @@ class System:
         slot = self.next_kf
         pose = torch.cat([res.R, res.t[:, None]], 1)
         params = self.frontend.extractor.params
+        # The JAX System draws the chain's key here (for planes and lines);
+        # the port draws it too, so later draws stay in step.
+        self._split_key()
         with self.timer.stage("keyframe.chain"):
             st, next_lm, ind = _kf_chain(
                 self.camera, self._state, slot, pose, entry.ts, entry.feats, res.kp_lm,
@@ -535,7 +694,7 @@ class System:
         t_rel = t - R_rel @ kf_pose[:, 3]
         both = torch.stack([torch.cat([R, t[:, None]], 1),
                             torch.cat([R_rel, t_rel[:, None]], 1)]).cpu().numpy()
-        self._frame_stats.append((ts, self.ref_kf, both[1]))
+        self._frame_stats.append((ts, self.ref_kf, both[1], False))
         return both[0]
 
     # ------------------------------------------------------------------
@@ -546,7 +705,9 @@ class System:
         self._drain_pending()
         kf_poses = self._state.kf_pose.cpu().numpy()
         out = []
-        for ts, ref, rel in self._frame_stats:
+        for ts, ref, rel, lost in self._frame_stats:
+            if lost:
+                continue
             Pk = kf_poses[ref]
             R = rel[:, :3] @ Pk[:, :3]
             t = rel[:, :3] @ Pk[:, 3] + rel[:, 3]
@@ -584,6 +745,7 @@ class System:
             "frames": self.num_frames,
             "keyframes": self.num_keyframes,
             "landmarks": self.num_landmarks,
+            "relocalizations": self.num_relocalizations,
             "tracking_state": self._tracking_state.value,
             "timing": self.timer.summary(),
         }

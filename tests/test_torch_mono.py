@@ -1,0 +1,307 @@
+"""Port parity: monocular initialization and the monocular System.
+
+Inputs: 8 frames of the rendered sequence at 320x240 (600 keypoints over 4
+levels), stepping 0.08 m a frame as tests/test_system_e2e.py's monocular
+test does. The op-level tests feed the JAX frontend's features to both
+packages with the same key; ``utils/prng`` draws the JAX package's
+samples, so the outputs must agree: matches, masks and the model choice
+exactly, pose within 1e-4, points within 1e-3 relative (low parallax
+scales the pose's differences by depth over baseline). The System-level
+test runs both Systems on the frames: the same frames return no pose
+(the same init frame), per-frame poses within 1e-3 m / 1e-3 rad, equal
+keyframe counts. The slow case is the port's copy of
+``test_mono_sequence_ate``.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from structure_plp_slam_tpu.camera import Camera as JCamera
+from structure_plp_slam_tpu.camera import CameraModel as JModel
+from structure_plp_slam_tpu.camera import CameraSetup as JSetup
+from structure_plp_slam_tpu.config import Config as JConfig
+from structure_plp_slam_tpu.models import frontend as jfrontend
+from structure_plp_slam_tpu.models import initializer as jinit
+from structure_plp_slam_tpu.ops.orb import OrbParams as JOrb
+from structure_plp_slam_tpu.system import System as JSystem
+from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
+from structure_plp_slam_tpu_torch.config import Config
+from structure_plp_slam_tpu_torch.io import trajectory as traj_io
+from structure_plp_slam_tpu_torch.models import initializer as tinit
+from structure_plp_slam_tpu_torch.ops import fused_match as tfm
+from structure_plp_slam_tpu_torch.ops.orb import OrbParams
+from structure_plp_slam_tpu_torch.system import System, TrackerState
+from structure_plp_slam_tpu_torch.testing import synthetic_scene
+from structure_plp_slam_tpu_torch.utils import prng
+
+torch.set_num_threads(2)
+
+_KW = dict(name="synt", cols=320, rows=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5,
+           fps=30.0, focal_x_baseline=0.0, depth_threshold=400.0, depthmap_factor=1.0)
+JCAM = JCamera(setup=JSetup.MONOCULAR, model=JModel.PERSPECTIVE, **_KW)
+TCAM = Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE, **_KW)
+NUM_FRAMES = 8
+SIZES = dict(max_keyframes=8, max_landmarks=4096, enable_loop_closing=False, track_lag=2,
+             max_kf_interval=3)
+
+
+@functools.lru_cache(maxsize=1)
+def _frames():
+    frames, poses = synthetic_scene.make_sequence(np.random.default_rng(42), TCAM,
+                                                  num_frames=NUM_FRAMES, step=0.08)
+    return frames, poses
+
+
+@functools.lru_cache(maxsize=None)
+def jax_feats(i):
+    """The JAX frontend's monocular features of frame ``i`` (numpy)."""
+    orb = JOrb(max_num_keypts=600, num_levels=4)
+    cap = jfrontend.orb_ops.OrbExtractor(JCAM.rows, JCAM.cols, orb).capacity
+    fe = jfrontend.Frontend(JCAM, orb, pad_to=-(-cap // 8) * 8)  # the System's pad_to
+    out = fe.mono(jnp.asarray(_frames()[0][i][0]))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _to_torch(f):
+    out = {}
+    for k, v in f.items():
+        a = np.array(v)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        elif a.dtype == np.int32:
+            a = a.astype(np.int64)
+        out[k] = torch.from_numpy(a)
+    return out
+
+
+@pytest.mark.parametrize("pair,seed", [((0, 3), 0), ((0, 5), 1), ((1, 6), 7)])
+def test_try_initialize_mono_parity(pair, seed):
+    f1, f2 = (jax_feats(i) for i in pair)
+    rj = jinit.try_initialize_mono(JCAM, f1, f2, jax.random.PRNGKey(seed))
+    rt = tinit.try_initialize_mono(TCAM, _to_torch(f1), _to_torch(f2), prng.PRNGKey(seed))
+    assert int(rt.num_matches) == int(rj.num_matches)
+    assert bool(rt.used_homography) == bool(rj.used_homography)
+    assert bool(rt.success) == bool(rj.success)
+    assert int(rt.num_points) == int(rj.num_points)
+    assert (rt.point_ok.numpy() == np.asarray(rj.point_ok)).all()
+    assert (rt.matches.numpy() == np.asarray(rj.matches)).all()
+    assert np.abs(rt.R_2w.numpy() - np.asarray(rj.R_2w)).max() < 1e-4
+    assert np.abs(rt.t_2w.numpy() - np.asarray(rj.t_2w)).max() < 1e-4
+    ok = np.asarray(rj.point_ok)
+    pj, pt = np.asarray(rj.points_w)[ok], rt.points_w.numpy()[ok]
+    # Depth over a unit baseline reaches ~20 here, which scales the 1e-5
+    # differences of the pose into the points: 1e-3 relative.
+    assert np.abs(pt - pj).max() / np.abs(pj).max() < 1e-3
+
+
+@pytest.mark.parametrize("count", [1, 2, 7, 8, 0])
+def test_scale_to_median_depth_parity(count):
+    """Even counts average the two middle depths (jnp.nanmedian), which
+    torch.nanmedian would not."""
+    rng = np.random.default_rng(count)
+    pts = rng.uniform(0.5, 9.0, (12, 3)).astype(np.float32)
+    ok = np.zeros(12, bool)
+    ok[rng.permutation(12)[:count]] = True
+    t = rng.normal(size=3).astype(np.float32)
+    pj, tj, sj = jinit.scale_to_median_depth(jnp.asarray(pts), jnp.asarray(ok), jnp.asarray(t))
+    pt, tt, st = tinit.scale_to_median_depth(torch.from_numpy(pts), torch.from_numpy(ok),
+                                             torch.from_numpy(t))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+
+
+def _run(slam, frames):
+    slam.startup()
+    poses = []
+    for img, _, ts in frames:
+        out = slam.feed_monocular_frame(img, ts)
+        if torch.is_tensor(out):
+            out = out.cpu().numpy()
+        poses.append(None if out is None else np.array(out))
+    slam.shutdown()
+    return poses
+
+
+@functools.lru_cache(maxsize=1)
+def run_jax():
+    js = JSystem(JConfig(camera=JCAM, orb=JOrb(max_num_keypts=600, num_levels=4), raw={}),
+                 **SIZES)
+    return js, _run(js, _frames()[0])
+
+
+@functools.lru_cache(maxsize=1)
+def run_port():
+    ts = System(Config(camera=TCAM, orb=OrbParams(max_num_keypts=600, num_levels=4), raw={}),
+                device="cpu", **SIZES)
+    tfm.reset_counts()
+    poses = _run(ts, _frames()[0])
+    return ts, poses, tfm.fused_match.calls, tfm.fused_match.launches
+
+
+def _rot_angle(Ra, Rb):
+    c = (np.trace(Ra.T @ Rb) - 1.0) / 2.0
+    return float(np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+def test_mono_system_matches_jax():
+    js, jposes = run_jax()
+    ts, tposes, _, _ = run_port()
+    init_j = [p is not None for p in jposes]
+    assert [p is not None for p in tposes] == init_j
+    assert sum(init_j) >= 3, "the monocular map did not initialize early enough"
+    for i, (a, b) in enumerate(zip(jposes, tposes)):
+        if a is None:
+            continue
+        dt = np.linalg.norm(a[:, 3] - b[:, 3])
+        dr = _rot_angle(a[:, :3], b[:, :3])
+        # 1e-3 m / 1e-3 rad: f32 sums in another order through SVD, LM and BA.
+        assert dt < 1e-3 and dr < 1e-3, f"frame {i}: {dt:.2e} m, {dr:.2e} rad"
+    tj, tt = js.frame_trajectory(), ts.frame_trajectory()
+    assert len(tj) == len(tt)
+    for (ta, pa), (tb, pb) in zip(tj, tt):
+        assert ta == tb
+        assert np.abs(pa - pb).max() < 1e-3
+    assert ts.num_keyframes == js.num_keyframes
+    assert ts.next_kf == js.next_kf >= 2
+    assert ts.tracking_state.value == js.tracking_state.value == "Tracking"
+
+
+def test_mono_system_went_through_matcher():
+    ts, _, calls, launches = run_port()
+    assert ts.num_track_steps > 0
+    # Three matcher calls per tracked frame, one per keyframe chain (the
+    # two init keyframes run no chain).
+    assert calls == 3 * ts.num_track_steps + ts.next_kf - 2, (calls, ts.num_track_steps)
+    assert launches == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.slow
+def test_mono_sequence_ate():
+    """tests/test_system_e2e.py::test_mono_sequence_ate on the port."""
+    frames, poses = synthetic_scene.make_sequence(np.random.default_rng(42), TCAM,
+                                                  num_frames=16, step=0.08)
+    slam = System(Config(camera=TCAM, orb=OrbParams(max_num_keypts=600, num_levels=4),
+                         raw={}),
+                  max_keyframes=32, max_landmarks=8192, max_kf_interval=3,
+                  enable_loop_closing=False, device="cpu")
+    slam.startup()
+    for img, _, ts in frames:
+        slam.feed_monocular_frame(img, ts)
+    slam.shutdown()
+    assert slam.tracking_state is TrackerState.TRACKING
+    est = slam.frame_trajectory()
+    assert len(est) >= 10
+    gt = [(float(i) / 30.0, np.concatenate([R, t[:, None]], 1).astype(np.float64))
+          for i, (R, t) in enumerate(poses)]
+    ate = traj_io.ate_rmse(est, gt, align_scale=True)
+    assert ate < 0.08, f"ATE {ate}"
+
+
+def _features_from(frontend, to):
+    """A ``mono(img, ...)`` that returns ``frontend``'s features of the
+    image, converted by ``to`` (one package's features fed to the other
+    package's System)."""
+    def mono(img, *args, mask=None):
+        return to(frontend.mono(img))
+    return mono
+
+
+def _jax_to_port(f):
+    return _to_torch({k: np.asarray(v) for k, v in f.items()})
+
+
+def _port_to_jax(like):
+    """Port features as the JAX frontend's dtypes (``like``: its output)."""
+    def to(f):
+        out = {}
+        for k, v in f.items():
+            a = v.numpy()
+            if like[k].dtype == np.uint32:
+                a = a.view(np.uint32)
+            out[k] = jnp.asarray(a.astype(like[k].dtype))
+        return out
+    return to
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed", [0, 1])
+def test_full_width_mono_matches_jax(seed):
+    """chip_smoke.py's monocular path on the CPU (640x480, 1000 keypoints
+    over 8 levels, 40 frames at 0.08 m a frame, max_kf_interval=3;
+    capacities cut to 32 keyframes / 8192 landmarks), on the other paths'
+    texture (seed 0) and the next one (seed 1).
+
+    The two frontends' pyramid levels round differently (about 1% of the
+    descriptors differ, within tests/test_torch_frontend.py's tolerance),
+    and the two-view init turns on single area matches. On seed 1 the
+    port's features give one match fewer for frames 0-1, and that attempt
+    succeeds with a translation about 8 degrees off (the JAX features fail
+    it and initialize on frame 2); the trajectory then ends 0.25 m off
+    with frames lost near the end. So each System also runs on the other
+    package's features:
+
+    * on the JAX frontend's features the port System agrees with the JAX
+      System: end state, lost frames, trajectory length, first pose frame,
+      and Sim3 ATE within 0.01 m (seed 0's one-frame init baseline lets
+      the poses drift up to 0.05 m apart from frame 4 on, and its
+      keyframe count moves with the summation order: 7 or 8 with 2 or 3
+      torch threads; seed 1's poses stay within 2e-4 m);
+    * on either package's features both Systems take their first pose on
+      the same frame, and that pose agrees within 1e-3.
+
+    After seed 1's early init on the port's features the run is chaotic:
+    Sim3 ATE 0.27 m in the JAX System, 0.25-0.32 m in the port's with 3
+    or 2 torch threads, frames lost near the end in some of them.
+    """
+    kw = dict(name="b", cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5,
+              fps=30.0, focal_x_baseline=0.0, depth_threshold=40.0, depthmap_factor=1.0)
+    cam = Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE, **kw)
+    frames, poses = synthetic_scene.make_sequence(np.random.default_rng(seed), cam, 40,
+                                                  step=0.08)
+    sizes = dict(max_keyframes=32, max_landmarks=8192, max_kf_interval=3,
+                 enable_loop_closing=False)
+    orb = dict(max_num_keypts=1000, num_levels=8)
+
+    def jax_system():
+        return JSystem(JConfig(camera=JCamera(setup=JSetup.MONOCULAR,
+                                              model=JModel.PERSPECTIVE, **kw),
+                               orb=JOrb(**orb), raw={}), **sizes)
+
+    def port_system():
+        return System(Config(camera=cam, orb=OrbParams(**orb), raw={}), device="cpu", **sizes)
+
+    jax_fe, port_fe = jax_system().frontend, port_system().frontend
+    like = {k: np.asarray(v) for k, v in jax_fe.mono(jnp.asarray(frames[0][0])).items()}
+    gt = [(float(i) / 30.0, np.concatenate([R, t[:, None]], 1).astype(np.float64))
+          for i, (R, t) in enumerate(poses)]
+    out = {}
+    for feats in ("jax", "port"):
+        for package in ("jax", "port"):
+            slam = jax_system() if package == "jax" else port_system()
+            if package != feats:
+                slam.frontend.mono = (_features_from(jax_fe, _jax_to_port) if feats == "jax"
+                                      else _features_from(port_fe, _port_to_jax(like)))
+            fed = _run(slam, frames)
+            first = next(i for i, p in enumerate(fed) if p is not None)
+            est = slam.frame_trajectory()
+            r = out[feats, package] = (
+                slam.tracking_state.value, [s[0] for s in slam._frame_stats if s[3]],
+                len(est), first, fed[first], slam.num_keyframes,
+                traj_io.ate_rmse(est, gt, align_scale=True))
+            print(f"seed {seed}, {feats} features, {package} System: state {r[0]}, lost "
+                  f"frames at {r[1]}, {r[2]} trajectory frames, first pose at frame {r[3]}, "
+                  f"{r[5]} keyframes, Sim3 ATE {r[6]:.6f} m")
+    for feats in ("jax", "port"):
+        a, b = out[feats, "jax"], out[feats, "port"]
+        assert a[3] == b[3], (feats, a[3], b[3])
+        assert np.abs(a[4] - b[4]).max() < 1e-3, (feats, a[4], b[4])
+    a, b = out["jax", "jax"], out["jax", "port"]
+    assert a[:3] == b[:3], (a[:3], b[:3])
+    assert abs(a[6] - b[6]) < 0.01, (a[6], b[6])

@@ -150,8 +150,6 @@ def test_system_default_device_needs_card(monkeypatch):
 @pytest.mark.parametrize("kwargs,camera,item", [
     (dict(enable_loop_closing=True), TCAM, "A12"),
     (dict(with_lines=True), TCAM, "A14"),
-    ({}, Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE, **_KW), "A9"),
-    ({}, Camera(setup=CameraSetup.STEREO, model=CameraModel.PERSPECTIVE, **_KW), "A10"),
     ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.FISHEYE, **_KW), "A15"),
     ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.EQUIRECTANGULAR, **_KW), "A15"),
 ])
@@ -161,40 +159,94 @@ def test_unported_options_raise(kwargs, camera, item):
         System(_cfg(camera), **args)
 
 
-@pytest.mark.parametrize("feed,item", [
-    (lambda s, f: s.feed_monocular_frame(f[0], f[2]), "A9"),
-    (lambda s, f: s.feed_stereo_frame(f[0], f[0], f[2]), "A10"),
-    (lambda s, f: s.feed_RGBD_frame(f[0], f[1], f[2], seg_mask=np.ones_like(f[1])), "A13"),
+@pytest.mark.parametrize("setup", [CameraSetup.MONOCULAR, CameraSetup.STEREO])
+def test_mono_and_stereo_construct(setup):
+    """The monocular and stereo setups construct (they raised until the
+    slice that ported them)."""
+    slam = System(_cfg(Camera(setup=setup, model=CameraModel.PERSPECTIVE, **_KW)),
+                  device="cpu", **SIZES)
+    assert slam.tracking_state is TrackerState.NOT_INITIALIZED
+
+
+# Segmentation masks (planes) still raise on every feed.
+@pytest.mark.parametrize("setup,feed", [
+    (CameraSetup.MONOCULAR, lambda s, f, m: s.feed_monocular_frame(f[0], f[2], seg_mask=m)),
+    (CameraSetup.STEREO, lambda s, f, m: s.feed_stereo_frame(f[0], f[0], f[2], seg_mask=m)),
+    (CameraSetup.RGBD, lambda s, f, m: s.feed_RGBD_frame(f[0], f[1], f[2], seg_mask=m)),
 ], ids=["monocular", "stereo", "seg_mask"])
-def test_unported_feeds_raise(feed, item):
-    slam = System(_cfg(), device="cpu", **SIZES)
+def test_unported_feeds_raise(setup, feed):
+    camera = Camera(setup=setup, model=CameraModel.PERSPECTIVE, **_KW)
+    slam = System(_cfg(camera), device="cpu", **SIZES)
     slam.startup()
-    with pytest.raises(NotImplementedError, match=item):
-        feed(slam, _frames()[0])
+    frame = _frames()[0]
+    with pytest.raises(NotImplementedError, match="A13"):
+        feed(slam, frame, np.ones_like(frame[1]))
 
 
-def test_lost_tracking_raises_relocalization():
-    """A frame that keeps fewer than 30 inliers needs relocalization (A11):
-    a blank frame after initialization."""
+def test_feeds_run():
+    """The monocular feed keeps a first frame as its first view; the
+    stereo feed initializes from a rendered pair's disparities."""
+    mono = System(_cfg(Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE,
+                              **_KW)), device="cpu", **{**SIZES, "track_lag": 0})
+    mono.startup()
+    img, _, ts = _frames()[0]
+    assert mono.feed_monocular_frame(img, ts) is None
+    assert mono.tracking_state is TrackerState.NOT_INITIALIZED
+    assert mono._init_feats is not None
+
+    cam = Camera(setup=CameraSetup.STEREO, model=CameraModel.PERSPECTIVE, **_KW)
+    tex = synthetic_scene.make_texture(np.random.default_rng(1))
+    left, _ = synthetic_scene.render(cam, tex, np.eye(3), np.zeros(3))
+    right, _ = synthetic_scene.render(cam, tex, np.eye(3), -np.array([cam.baseline, 0, 0]))
+    stereo = System(_cfg(cam), device="cpu", **{**SIZES, "track_lag": 0})
+    stereo.startup()
+    assert stereo.feed_stereo_frame(left, right, 0.0) is not None
+    assert stereo.tracking_state is TrackerState.TRACKING
+    assert stereo.num_landmarks >= 30
+
+
+def test_lost_frame_goes_lost():
+    """A blank frame after initialization keeps fewer than 30 inliers: the
+    System declares it Lost, the relocalizer finds nothing in a blank
+    frame, and the frame is recorded as lost (no raise, no pose)."""
+    slam = System(_cfg(), device="cpu", **{**SIZES, "track_lag": 0})
+    slam.startup()
+    (img0, d0, t0), (img1, d1, t1) = _frames()[:2]
+    slam.feed_RGBD_frame(img0, d0, t0)
+    slam.feed_RGBD_frame(img1, d1, t1)
+    slam._init_frame_count -= 1000  # an old map: no young-map auto-reset
+    assert slam.feed_RGBD_frame(np.zeros_like(img1), d1, t1 + 1.0 / 30.0) is None
+    assert slam.tracking_state is TrackerState.LOST
+    assert slam.num_relocalizations == 0
+    assert slam._frame_stats[-1][3]  # recorded as lost ...
+    assert len(slam.frame_trajectory()) == 2  # ... and left out of the trajectory
+
+
+def test_young_map_resets_when_lost():
+    """Lost within 5 s of initialization on a map of <= 3 keyframes: the
+    System resets (tracking_module.cc:506-513) and starts over."""
     slam = System(_cfg(), device="cpu", **{**SIZES, "track_lag": 0})
     slam.startup()
     img, depth, ts = _frames()[0]
     slam.feed_RGBD_frame(img, depth, ts)
-    with pytest.raises(NotImplementedError, match="A11"):
-        slam.feed_RGBD_frame(np.zeros_like(img), depth, ts + 1.0 / 30.0)
+    assert slam.feed_RGBD_frame(np.zeros_like(img), depth, ts + 1.0 / 30.0) is None
+    assert slam.tracking_state is TrackerState.NOT_INITIALIZED
+    assert slam.next_kf == 0 and slam.frame_trajectory() == []
 
 
-def test_capacity_growth_raises():
-    """A map whose landmark headroom runs out needs map_database.grow (A2)."""
+def test_capacity_growth():
+    """A map whose landmark headroom runs out doubles its landmark
+    capacity (map_database.grow) and keeps tracking."""
     pad_to = System(_cfg(), device="cpu", **SIZES).frontend.pad_to
-    slam = System(_cfg(), device="cpu",
-                  **{**SIZES, "max_landmarks": 2 * pad_to + 64, "track_lag": 0})
+    L0 = 2 * pad_to + 64
+    slam = System(_cfg(), device="cpu", **{**SIZES, "max_landmarks": L0, "track_lag": 0})
     slam.startup()
     (img0, d0, t0), (img1, d1, t1) = _frames()[:2]
     slam.feed_RGBD_frame(img0, d0, t0)
     assert slam.next_lm > 64  # the depth seeds alone use up the headroom
-    with pytest.raises(NotImplementedError, match="A2"):
-        slam.feed_RGBD_frame(img1, d1, t1)
+    assert slam.feed_RGBD_frame(img1, d1, t1) is not None
+    assert slam.max_landmarks == slam.state.lm_pos.shape[0] == 2 * L0
+    assert slam.tracking_state is TrackerState.TRACKING
 
 
 @pytest.mark.slow
