@@ -35,7 +35,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 7. the monocular path: 40 frames at 0.08 m a frame, two-view init, on the
    JAX monocular test's sequence (seed 42): TRACKING, >= 30 frames in the
    trajectory, Sim3-aligned ATE < 0.08 m; the seed-0 and seed-1
-   sequences reported;
+   sequences reported; driven with fixed summation orders
+   (deterministic()), so that a run gives one result;
 8. the stereo path: 40 rendered pairs, 0.1 m baseline; TRACKING, tracked
    >= 39, > 200 landmarks, ATE < 0.06 m;
 9. relocalization, two blackouts (LOST after two black frames, TRACKING
@@ -45,16 +46,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    relocalizer recovers (frame 4 again, turned upside down; >= 1
    relocalization);
 10. growth: the RGB-D sequence from 4 keyframes / 2048 landmarks, which
-   must double both and keep ATE < 0.05 m.
-   Each of 4 and 7-10 runs at the main path's width with the kernel's
+   must double both and keep ATE < 0.05 m;
+11. loop closing: tests/test_loop_system.py's organic out-and-back (24
+   frames out and 24 back at 0.4 m a frame), a rigid drift injected into
+   the later half of the map after the outbound leg, the return leg fed
+   with loop closing on (the System's default): at least one loop closed,
+   the deferred global BA merged, TRACKING, the last keyframe within
+   0.35 m of its ground truth, and the loop fix's fuse call (its own call
+   site, loop_fuse) with active rows; its input timed like phase 5's.
+   Each of 4 and 7-11 runs at the main path's width with the kernel's
    counts set to 0 before it and read after, and fails unless every
    matcher call of the path (three per track_frame, the relocalizer's
-   candidates included, one per keyframe chain) launched the kernel, by
-   the wrapper's launch counter read around each call; it prints
-   frames/s, stage medians and the card line, and holds the kernel
-   against its plain version on every matcher input of the path (exact);
-11. whether torch.linalg.svd / eigh / det on the card make the host wait;
-12. one JSON line with each new path's numbers, one with every kernel's
+   candidates included, one per keyframe chain, one per loop fix)
+   launched the kernel, by the wrapper's launch counter read around each
+   call; it prints frames/s, stage medians and the card line, and holds
+   the kernel against its plain version on every matcher input of the
+   path (exact);
+12. whether torch.linalg.svd / eigh / det on the card make the host wait;
+13. one JSON line with each new path's numbers, one with every kernel's
    numbers (launches per path added), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -64,7 +73,9 @@ to the CPU and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -86,6 +97,8 @@ CALL_SITES = {
     "track_stage1": "tracker.py stage 1 (narrow + wide windows, previous frame's landmarks)",
     "track_stage2": "tracker.py stage 2 (local map)",
     "fuse": "mapper.fuse_into_keyframe (every landmark slot)",
+    "loop_fuse": "the loop fix's mapper.fuse_into_keyframe (the candidate keyframe's landmarks "
+                 "into the current keyframe; system.py _advance_pending_fix)",
 }
 REPLACES = "structure_plp_slam_tpu/ops/pallas_matching.py:42"
 SOURCE = "structure_plp_slam_tpu_torch/csrc/fused_match.cu"
@@ -275,28 +288,28 @@ def measured_tiles(fm, args):
     return fm.count_tiles(False)
 
 
-def time_saved_inputs():
-    """Phase 5's timings, run by time_in_child: for each call site's saved
-    input, time_pair's numbers and the yardstick, printed as one JSON
-    line."""
+def time_saved_inputs(sites):
+    """Phase 5's timings, run by time_in_child: for each of ``sites``'
+    saved input, time_pair's numbers and the yardstick, printed as one
+    JSON line."""
     from structure_plp_slam_tpu_torch.ops import fused_match as fm
 
     inputs = torch.load(INPUTS)
     device_ms(lambda: torch.ones(1024, device="cuda").add_(1), reps=2, warmup=1)
     out = {}
-    for site in CALL_SITES:
+    for site in sites:
         args = tuple(a.cuda() for a in inputs[site])
         out[site] = {**time_pair(fm, args), "yardstick_ms": bitplane_yardstick_ms(args)}
     print(json.dumps(out))
 
 
-def time_in_child():
+def time_in_child(sites):
     """time_saved_inputs in a fresh process. Once the main path has run,
     the profiler sessions of this process come back short of kernel
     records (18-19 of 20 on the H100, or none), while a fresh process's
     come back whole."""
     res = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.time_saved_inputs()"],
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.time_saved_inputs({list(sites)!r})"],
         cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900,
     )
     if res.returncode != 0:
@@ -404,14 +417,19 @@ def profile_frames(make_system, frames, warm, count):
 class SiteRecorder:
     """Wraps the fused matcher where the tracker and the mapper call it.
     Per call site (stage 1 has the keypoint slot count of rows, stage 2
-    any other count, fuse is the mapper's) it counts the calls, and the
-    kernel launches as the wrapper's own launch counter moves across each
-    call; it keeps every call's inputs for the exact check. The
-    relocalizer's candidates go through ``tracker.track_frame``, so the
-    tracker's name covers them."""
+    any other count; the mapper's is fuse, or loop_fuse while the System's
+    loop fix runs, whose method the recorder wraps to say so) it counts
+    the calls, and the kernel launches as the wrapper's own launch counter
+    moves across each call; it keeps every call's inputs for the exact
+    check. The relocalizer's candidates go through
+    ``tracker.track_frame``, so the tracker's name covers them."""
 
     def __init__(self, fm, tracker, mapper, num_kps):
+        from structure_plp_slam_tpu_torch.system import System
+
         self.fm, self.tracker, self.mapper, self.num_kps = fm, tracker, mapper, num_kps
+        self.system_cls = System
+        self.in_loop_fix = False
         self.calls = {site: 0 for site in CALL_SITES}
         self.launches = {site: 0 for site in CALL_SITES}
         self.inputs = []
@@ -433,12 +451,24 @@ class SiteRecorder:
     def __enter__(self):
         self.tracker.fused_match = self._wrap(
             lambda a: "track_stage1" if a[0].shape[0] == self.num_kps else "track_stage2")
-        self.mapper.fused_match = self._wrap(lambda a: "fuse")
+        self.mapper.fused_match = self._wrap(
+            lambda a: "loop_fuse" if self.in_loop_fix else "fuse")
+        self.advance_fix = advance = self.system_cls._advance_pending_fix
+
+        def advance_in_fix(slam):
+            self.in_loop_fix = True
+            try:
+                return advance(slam)
+            finally:
+                self.in_loop_fix = False
+
+        self.system_cls._advance_pending_fix = advance_in_fix
         return self
 
     def __exit__(self, *exc):
         self.tracker.fused_match = self.fm.fused_match
         self.mapper.fused_match = self.fm.fused_match
+        self.system_cls._advance_pending_fix = self.advance_fix
 
 
 def drive_path(name, fm, recorder, slam, feed, items):
@@ -449,6 +479,7 @@ def drive_path(name, fm, recorder, slam, feed, items):
     steps0 = slam.num_track_steps
     relocs0 = len(slam.timer.times.get("relocalize", []))
     chains0 = len(slam.timer.times.get("keyframe.chain", []))
+    loops0 = slam.loop_closer.num_loops_closed
     torch.cuda.synchronize()
     fm.reset_counts()
     tracked = 0
@@ -466,16 +497,19 @@ def drive_path(name, fm, recorder, slam, feed, items):
     timing = slam.timer.summary()
     # Matcher calls the structure of the run implies: three per
     # track_frame (one per tracked frame, three per relocalization
-    # attempt: one per candidate), one per keyframe chain.
+    # attempt: one per candidate), one per keyframe chain, one per loop
+    # correction.
     relocs = len(slam.timer.times.get("relocalize", [])) - relocs0
     chains = len(slam.timer.times.get("keyframe.chain", [])) - chains0
+    loops = slam.loop_closer.num_loops_closed - loops0
     frames_tf = slam.num_track_steps - steps0 + 3 * relocs
-    expected = {"track_stage1": 2 * frames_tf, "track_stage2": frames_tf, "fuse": chains}
+    expected = {"track_stage1": 2 * frames_tf, "track_stage2": frames_tf, "fuse": chains,
+                "loop_fuse": loops}
     run = {"path": name, "frames": len(items), "tracked": tracked, "wall_s": wall,
            "frames_per_s": len(items) / wall, "launches": launches, "calls": calls,
            "site_calls": dict(recorder.calls), "site_launches": dict(recorder.launches),
            "expected_site_calls": expected, "launches_by_rows": by_rows,
-           "relocalize_calls": relocs, "chains": chains,
+           "relocalize_calls": relocs, "chains": chains, "loops_closed": loops,
            "state": slam.tracking_state.value, "keyframes": slam.num_keyframes,
            "landmarks": slam.num_landmarks, "relocalizations": slam.num_relocalizations,
            "max_keyframes": slam.max_keyframes, "max_landmarks": slam.max_landmarks,
@@ -525,6 +559,21 @@ def center_error(slam, pose):
     P = slam.frame_trajectory()[-1][1]
     R, t = pose
     return float(np.linalg.norm(-P[:, :3].T @ P[:, 3] + R.T @ t))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Fixed summation orders inside: the Gauss-Newton solvers' segment
+    sums (index_add_, index_put_ with accumulate) otherwise add in another
+    order on every run on the card, and the monocular path follows them
+    chaotically (its gated sequence read 0.068-0.084 m over runs of one
+    code). The sums then sort their indices, about a third more device
+    operations per frame, so only the monocular phase runs so."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def blackout_items(frames, shown, black_ts, turn=False):
@@ -632,7 +681,8 @@ def other_paths(fm, cam, cfg, N, device="cuda", capacities=(256, 32768)):
         frames, poses = synthetic_scene.make_sequence(np.random.default_rng(seed), mono_cam,
                                                       NUM_FRAMES, step=0.08)
         slam = system(dataclasses.replace(cfg, camera=mono_cam), max_kf_interval=3)
-        r = drive_path(name, fm, recorder(), slam, mono_feed, frames)
+        with deterministic():
+            r = drive_path(name, fm, recorder(), slam, mono_feed, frames)
         ate = ate_of(traj_io, slam, poses, align_scale=True)
         n_traj = len(slam.frame_trajectory())
         r["gates"] = {"seed": seed, "ate_sim3_m": ate, "trajectory_frames": n_traj,
@@ -732,9 +782,127 @@ def other_paths(fm, cam, cfg, N, device="cuda", capacities=(256, 32768)):
     return runs
 
 
+def inject_drift(slam):
+    """tests/test_loop_system.py's drift: the later half of the map (the
+    keyframes from next_kf // 2, the landmarks they made, the tracker
+    pose) moved by a rigid transform larger than the tracker's
+    association windows, so the revisit cannot re-attach on its own. The
+    observations across the cut (a later keyframe's of an earlier
+    landmark, and the reverse) are dropped, which keeps each half
+    self-consistent: the JAX test moves the landmarks by their reference
+    keyframe alone, and at this width the revisit's keyframes then hold
+    landmarks ~1.1 m off in their own frames, so the Sim3 validation
+    passes or fails by chance (ROADMAP C22)."""
+    from structure_plp_slam_tpu_torch.ops import lie
+
+    dev = slam.device
+    T_R = lie.so3_exp(torch.tensor([0.0, 0.05, 0.0], device=dev))
+    T_t = torch.tensor([0.9, 0.0, 0.3], device=dev)
+    T_R_inv, T_t_inv = T_R.T, -T_R.T @ T_t
+    st = slam.state
+    kf_cut = slam.next_kf // 2
+    K = st.kf_pose.shape[0]
+    sel = (torch.arange(K, device=dev) >= kf_cut) & st.kf_valid
+    R, t = st.kf_pose[:, :, :3], st.kf_pose[:, :, 3]
+    pose = torch.where(sel[:, None, None], lie.pack_pose(R @ T_R_inv, R @ T_t_inv + t),
+                       st.kf_pose)
+    lm_late = st.lm_ref_kf >= kf_cut
+    lm = torch.where((lm_late & st.lm_valid)[:, None], st.lm_pos @ T_R.T + T_t, st.lm_pos)
+    idx = st.kf_lm_idx
+    cross = (idx >= 0) & ((torch.arange(K, device=dev) >= kf_cut)[:, None]
+                          != lm_late[torch.clamp(idx, min=0)])
+    slam.state = st._replace(kf_pose=pose, lm_pos=lm, kf_lm_idx=torch.where(cross, -1, idx))
+    Rp, tp = slam.pose
+    slam.pose = (Rp @ T_R_inv, Rp @ T_t_inv + tp)
+
+
+def loop_path(fm, cam, cfg, N, capacities=(256, 32768)):
+    """Phase 11: loop closing at the main path's width and capacities on
+    tests/test_loop_system.py's organic out-and-back (numpy seed 0; the
+    sequence of tests/test_torch_loop_system.py::
+    test_full_width_loop_closure_matches_jax, where the JAX System closes
+    the loop with max_kf_interval=2 at this width). The outbound leg and
+    the return leg are driven in turn, the drift injected between them."""
+    from structure_plp_slam_tpu_torch.models import mapper, tracker
+    from structure_plp_slam_tpu_torch.system import System, TrackerState
+    from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+    tex = synthetic_scene.make_texture(np.random.default_rng(0), size=1536)
+    centres = ([np.array([0.4 * i, 0.0, 0.0]) for i in range(24)]
+               + [np.array([0.4 * (23 - i), 0.0, 0.0]) for i in range(24)])
+    frames = []
+    for i, C in enumerate(centres):
+        img, depth = synthetic_scene.render(cam, tex, np.eye(3), -C, plane_half=14.0)
+        frames.append((img, depth, i / 30.0))
+    slam = System(cfg, max_keyframes=capacities[0], max_landmarks=capacities[1],
+                  max_kf_interval=2, verbose_timing=True, device="cuda")
+    feed = lambda s, f: s.feed_RGBD_frame(f[0], f[1], f[2])  # noqa: E731
+    validations = []  # [kf_cur, cand, matches, RANSAC inliers, refined inliers, scale]
+    consume = slam.loop_closer.validate_consume
+
+    def record_validation(packed):
+        f = slam._pending_fix
+        validations.append([f["kf_cur"], f["cand"], *packed.numpy()[:4].tolist()])
+        return consume(packed)
+
+    slam.loop_closer.validate_consume = record_validation
+    r = drive_path("loop_out", fm, SiteRecorder(fm, tracker, mapper, N), slam, feed, frames[:24])
+    gate("loop", r["state"] == TrackerState.TRACKING.value, f"outbound leg ended {r['state']}")
+    inject_drift(slam)
+    back = SiteRecorder(fm, tracker, mapper, N)
+    r2 = drive_path("loop_back", fm, back, slam, feed, frames[24:])
+    st = slam.state
+    kf_ts = st.kf_timestamp.cpu().numpy()
+    last = int(np.argmax(kf_ts * st.kf_valid.cpu().numpy()))
+    P = st.kf_pose[last].cpu().numpy()
+    err = float(np.linalg.norm(-P[:, :3].T @ P[:, 3] - centres[int(round(kf_ts[last] * 30))]))
+    fuse_inputs = back.inputs_at("loop_fuse")
+    active = [int((a[1][:, 2] >= 0).sum().item()) for a in fuse_inputs]
+    timing = slam.timer.summary()
+    stages = ("loop_detect", "loopfix.validate", "loopfix.correct", "gba.prepare", "gba.chunk",
+              "gba.adopt")
+    run = dict(r2)
+    for key in ("frames", "tracked", "launches", "calls", "relocalize_calls", "chains",
+                "loops_closed"):
+        run[key] = r[key] + r2[key]
+    for key in ("site_calls", "site_launches"):
+        run[key] = {k: r[key][k] + r2[key][k] for k in CALL_SITES}
+    run["max_abs_err"] = max(r["max_abs_err"], r2["max_abs_err"])
+    run["wall_s"] = r["wall_s"] + r2["wall_s"]
+    run["frames_per_s"] = run["frames"] / run["wall_s"]
+    run["gates"] = {
+        "loops_closed": slam.loop_closer.num_loops_closed,
+        "loop_edges": [list(e[:2]) for e in slam.loop_closer.loop_edges],
+        "last_keyframe": last, "last_keyframe_error_m": err,
+        "gba_adopt_count": timing.get("gba.adopt", {}).get("count", 0),
+        "validations": validations,
+        "loop_fuse_active_rows": active,
+        "loop_stage_median_ms": {k: timing[k]["median_ms"] for k in stages if k in timing},
+        "loop_stage_count": {k: timing[k]["count"] for k in stages if k in timing},
+    }
+    print(f"path loop: {run['frames']} frames at {run['frames_per_s']:.3f} frames/s; "
+          f"{slam.loop_closer.num_loops_closed} loops closed {run['gates']['loop_edges']}; "
+          f"last keyframe {last} centre {err:.6f} m from its ground truth; global BA merged "
+          f"{run['gates']['gba_adopt_count']} times; loop_fuse active rows {active}; state "
+          f"{run['state']}; validations [kf_cur, cand, matches, RANSAC inliers, refined "
+          f"inliers, scale] {validations}")
+    for k in stages:
+        if k in timing:
+            print(f"path loop stage {k}: count {timing[k]['count']} median "
+                  f"{timing[k]['median_ms']:.3f} ms max {timing[k]['max_ms']:.3f} ms")
+    gate("loop", slam.loop_closer.num_loops_closed >= 1, "no loop closed")
+    gate("loop", err < 0.35, f"last keyframe {err} m from its ground truth")
+    gate("loop", run["gates"]["gba_adopt_count"] >= 1, "the deferred global BA never merged")
+    gate("loop", run["state"] == TrackerState.TRACKING.value, f"ended {run['state']}")
+    gate("loop", fuse_inputs and min(active) > 0, f"loop_fuse active rows {active}")
+    return run, fuse_inputs[-1]
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device (this script never runs on the CPU)")
+    # Before cuBLAS starts: deterministic() needs it for fixed sums.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import structure_plp_slam_tpu_torch  # noqa: F401  (sets TF32 off)
         from structure_plp_slam_tpu_torch.ops import fused_match as fm
@@ -773,10 +941,9 @@ def main():
     )
     cfg = Config(camera=cam, orb=OrbParams(max_num_keypts=1000, num_levels=8), raw={})
 
-    def make_system(verbose_timing):
+    def make_system(verbose_timing):  # loop closing on, the default
         return System(cfg, max_keyframes=256, max_landmarks=32768,
-                      enable_loop_closing=False, verbose_timing=verbose_timing,
-                      device="cuda")
+                      verbose_timing=verbose_timing, device="cuda")
 
     slam = make_system(verbose_timing=True)
     N = slam.frontend.pad_to
@@ -872,15 +1039,15 @@ def main():
     # ---- 5. kernel vs plain on the main path's own inputs -----------------
     # The last call at each site (and the dense fuse-sized input, for
     # compare_fused_match.py) saved on the host, and timed in a fresh process.
-    timed = {site: main.inputs_at(site)[-1] for site in CALL_SITES}
+    timed = {site: main.inputs_at(site)[-1] for site in rows_by_site}
     timed[f"dense {rows_by_site['fuse']}x{N}"] = dense_args["fuse"]
     torch.save({k: tuple(a.cpu() for a in v) for k, v in timed.items()}, INPUTS)
-    times = time_in_child()
-    kernels = []
-    for site, rows in rows_by_site.items():
-        err = rgbd["max_abs_err_by_site"][site]  # all the main path's calls (drive_path)
-        args = timed[site]
-        t = times[site]
+    times = time_in_child(rows_by_site)
+
+    def kernel_entry(site, args, t, launches, err, dense_site):
+        """One call site's entry of the kernels line; ``t`` from
+        time_in_child, ``err`` over all the path's calls (drive_path)."""
+        rows = args[0].shape[0]
         yard = t["yardstick_ms"]
         bound_ms, bound_by, active, pairs = bound(fm, args)
         tiles = measured_tiles(fm, args)
@@ -889,13 +1056,13 @@ def main():
               f"{t['kernel_records']} / {t['plain_records']} records), bf16 bit-plane "
               f"matmul yardstick {yard:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); one call "
               f"{t['kernel_call_ms']:.4f} / {t['plain_call_ms']:.4f} ms; launches "
-              f"{launches_by_site[site]}; tiles {tiles}")
-        kernels.append({
+              f"{launches}; tiles {tiles}")
+        return {
             "name": f"fused_match@{site}",
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES,
-            "launches": launches_by_site[site],
+            "launches": launches,
             "max_abs_err": err,
             "ms": t["kernel_ms"],
             "records": t["kernel_records"],
@@ -913,8 +1080,12 @@ def main():
             "design": DESIGN,
             "tiles": tiles,
             "call_site": CALL_SITES[site],
-            **dense[site],
-        })
+            **dense[dense_site],
+        }
+
+    kernels = [kernel_entry(site, timed[site], times[site], launches_by_site[site],
+                            rgbd["max_abs_err_by_site"][site], site)
+               for site in rows_by_site]
 
     # ---- 6. where the time goes -------------------------------------------
     # Eight frames around the second keyframe chain (the first with local
@@ -924,6 +1095,15 @@ def main():
 
     # ---- 7-10. the monocular, stereo, relocalization and growth paths ----
     runs = {"rgbd": rgbd, **other_paths(fm, cam, cfg, N)}
+
+    # ---- 11. loop closing ---------------------------------------------------
+    runs["loop"], loop_args = loop_path(fm, cam, cfg, N)
+    timed["loop_fuse"] = loop_args
+    torch.save({k: tuple(a.cpu() for a in v) for k, v in timed.items()}, INPUTS)
+    kernels.append(kernel_entry(  # the dense synthetic input of fuse's shape beside it
+        "loop_fuse", loop_args, time_in_child(["loop_fuse"])["loop_fuse"],
+        runs["loop"]["site_launches"]["loop_fuse"], runs["loop"]["max_abs_err_by_site"]
+        .get("loop_fuse", 0.0), "fuse"))
     for k in kernels:
         site = k["name"].split("@")[1]
         k["launches_by_path"] = {p: r["site_launches"][site] for p, r in runs.items()}
@@ -934,10 +1114,10 @@ def main():
              for p, r in runs.items()}
     print(json.dumps({"paths": paths}))
 
-    # ---- 11. host syncs of the batched linear algebra ----------------------
+    # ---- 12. host syncs of the batched linear algebra ----------------------
     sync_check()
 
-    # ---- 12. result lines ------------------------------------------------
+    # ---- 13. result lines ------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

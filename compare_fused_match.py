@@ -8,7 +8,8 @@ one, in turns, on one NVIDIA GPU.
 Both sources are built with the wrapper's nvcc flags and launched through
 the same bare ctypes call, so the wrapper's host work weighs on neither.
 On each input that chip_smoke.py saved (the last main-path call at each
-call site, and the dense fuse-sized input) both are held exactly against
+call site, the dense fuse-sized input, and the loop path's loop-fix fuse
+call) both are held exactly against
 fused_match_plain, then timed other, this, this, other with
 chip_smoke.py's readers. Prints a line per input and a JSON line. The
 other source must keep the C interface of ``fused_match_launch``.

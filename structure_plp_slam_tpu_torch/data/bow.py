@@ -1,4 +1,4 @@
-"""Place-recognition retrieval (relocalization candidates).
+"""Place-recognition retrieval (loop and relocalization candidates).
 
 Port of structure_plp_slam_tpu/data/bow.py, which replaces the reference's
 DBoW2 vocabulary + inverted index (data/bow_database.{h,cc}) by direct
@@ -48,7 +48,12 @@ class BowIndex:
 
     def scores(self, state, query_desc, query_valid):
         """``[K]`` scores of a query frame's descriptors (relocalization
-        candidates, bow_database.cc:170). Loop candidates (a stored
-        keyframe's scores) come with loop closing, ROADMAP A12."""
+        candidates, bow_database.cc:170)."""
         return _scores_impl(state.kf_desc, state.kf_kp_valid, state.kf_valid,
                             query_desc, query_valid, chunk=self.chunk)
+
+    def scores_for_slot(self, state, slot):
+        """``[K]`` scores of stored keyframe ``slot`` against every keyframe
+        (loop candidates, bow_database.cc:97)."""
+        return _scores_impl(state.kf_desc, state.kf_kp_valid, state.kf_valid,
+                            state.kf_desc[slot], state.kf_kp_valid[slot], chunk=self.chunk)

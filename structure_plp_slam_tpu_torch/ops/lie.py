@@ -1,11 +1,12 @@
-"""Batched Lie-group operations: SO(3) and SE(3).
+"""Batched Lie-group operations: SO(3), SE(3) and Sim(3).
 
 Port of structure_plp_slam_tpu/ops/lie.py with the same conventions:
 rotations ``[..., 3, 3]``; poses world->camera (``x_c = R @ x_w + t``),
 packed ``[..., 3, 4]``; se(3) tangents ``[..., 6]`` ordered
-``[rho, phi]``; quaternions ``[..., 4]`` in ``[w, x, y, z]`` order. Small
-angles take Taylor branches selected with ``torch.where``. The Sim(3)
-group (loop closing) comes with ROADMAP A12.
+``[rho, phi]``; sim(3) tangents ``[..., 7]`` ordered ``[rho, phi,
+sigma]``, a similarity ``(R, t, s)`` acting as ``x -> s R x + t``;
+quaternions ``[..., 4]`` in ``[w, x, y, z]`` order. Small angles take
+Taylor branches selected with ``torch.where``.
 """
 
 from __future__ import annotations
@@ -172,6 +173,69 @@ def clamp_tangent(xi, max_rot: float = 0.5, max_trans: float = 10.0):
     rho = rho * torch.clamp(rdiv(max_trans, nr), max=1.0)
     phi = phi * torch.clamp(rdiv(max_rot, npf), max=1.0)
     return torch.cat([rho, phi], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): loop closing (Sim3 fitting, pose graph; reference g2o/sim3).
+# ---------------------------------------------------------------------------
+
+
+def _sim3_W(phi, sigma, s):
+    """W = A I + B K + C K^2 of the sim(3) exp (Eade's closed form), with
+    the small-sigma and small-theta limits."""
+    theta = _angle(phi)
+    K = hat(phi)
+    K2 = K @ K
+    eps = 1e-5
+    sig_small = torch.abs(sigma) < eps
+    th_small = theta < eps
+    safe_sig = torch.where(sig_small, torch.ones_like(sigma), sigma)
+    safe_th = torch.where(th_small, torch.ones_like(theta), theta)
+    th2 = safe_th * safe_th
+    A_generic = (s - 1.0) / safe_sig
+    A = torch.where(sig_small, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, A_generic)
+    a = s * torch.sin(safe_th)
+    b = s * torch.cos(safe_th)
+    c = th2 + safe_sig * safe_sig
+    B_generic = (a * safe_sig + (1.0 - b) * safe_th) / (safe_th * c)
+    C_generic = (A_generic - ((b - 1.0) * safe_sig + a * safe_th) / c) / th2
+    sig2 = safe_sig * safe_sig
+    B_th0 = ((safe_sig - 1.0) * s + 1.0) / sig2
+    C_th0 = (s * (0.5 * sig2 - safe_sig + 1.0) - 1.0) / (sig2 * safe_sig)
+    B = torch.where(sig_small, _cosc(theta), torch.where(th_small, B_th0, B_generic))
+    C = torch.where(sig_small, _sincc(theta), torch.where(th_small, C_th0, C_generic))
+    return (A[..., None, None] * _eye3(phi).expand(K.shape)
+            + B[..., None, None] * K + C[..., None, None] * K2)
+
+
+def sim3_exp(xi):
+    """sim(3) exp: ``[..., 7] ([rho, phi, sigma]) -> (R, t, s)``."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    return so3_exp(phi), _mv(_sim3_W(phi, sigma, s), rho), s
+
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    """(Ra,ta,sa) ∘ (Rb,tb,sb): x -> sa Ra (sb Rb x + tb) + ta."""
+    return Ra @ Rb, sa[..., None] * _mv(Ra, tb) + ta, sa * sb
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = rdiv(1.0, s)
+    return Rt, -s_inv[..., None] * _mv(Rt, t), s_inv
+
+
+def sim3_apply(R, t, s, points):
+    return s[..., None, None] * torch.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
+
+
+def sim3_log(R, t, s):
+    """sim(3) log: the inverse of :func:`sim3_exp` (solves W rho = t)."""
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    rho = _linalg.solve3(_sim3_W(phi, sigma, s), t)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
 
 
 def quat_from_rotmat(R):

@@ -1,32 +1,41 @@
 """System facade: the public API of the port (point landmarks).
 
 Port of structure_plp_slam_tpu/system.py for monocular, stereo and RGB-D
-tracking and mapping with point landmarks (reference PLPSLAM::system,
-src/PLPSLAM/system.cc): feed frames with ``feed_monocular_frame``,
-``feed_stereo_frame`` or ``feed_RGBD_frame``, read trajectories back.
-Stereo and RGB-D start from depth; a monocular map starts from two views
-(``models/initializer.py``). Each frame
+tracking, mapping and loop closing with point landmarks (reference
+PLPSLAM::system, src/PLPSLAM/system.cc): feed frames with
+``feed_monocular_frame``, ``feed_stereo_frame`` or ``feed_RGBD_frame``,
+read trajectories back. Stereo and RGB-D start from depth; a monocular map
+starts from two views (``models/initializer.py``). Each frame
 runs the frontend, then ``_track_step`` (motion-model prediction,
 tracking, landmark statistics, decision packing); the host-side decisions
 (lost check, keyframe insertion, trajectory record) trail the device by
 ``track_lag`` frames and read ONE packed vector per frame. On the card
 that vector comes back through a pinned non-blocking copy and a CUDA
-event, so the copy overlaps the next frames' work. A keyframe runs the
-whole mapping chain (``_kf_chain``) as one Python function with no host
-sync inside. A frame that keeps fewer than 30 inliers is Lost and goes to
-the relocalizer; map capacities double just before an insertion would
-hit them (``data/map_database.grow``).
+event (``utils/types.HostCopy``), so the copy overlaps the next frames'
+work. A keyframe runs the whole mapping chain (``_kf_chain``) as one
+Python function with no host sync inside. A frame that keeps fewer than
+30 inliers is Lost and goes to the relocalizer; map capacities double
+just before an insertion would hit them (``data/map_database.grow``).
 
-Random draws (mono init, relocalization) follow the JAX System's key
-sequence from ``seed`` (``utils/prng``): one key per mono init attempt,
-per keyframe and per lost frame.
+Loop closing (``models/loop_closer.py``, on by default) runs as deferred
+phases, so a closing loop never stalls one frame for the whole fix: a
+keyframe chain scores the keyframe against the map; the next keyframe
+gates the scores on the host (once their copy has landed, or after 3
+keyframes) and starts the Sim3 validation; the following frames gate the
+validation, then correct the map (Sim3 neighbourhood correction, pose
+graph, duplicate fusion through the fused matcher), and the global BA runs
+in chunks over later frames and is merged into the map as it is then.
+
+Random draws (mono init, relocalization, loop validation) follow the JAX
+System's key sequence from ``seed`` (``utils/prng``): one key per mono init
+attempt, per keyframe, per lost frame and per loop validation.
 
 What the port does not have yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: loop closing, lines, segmentation masks
-(planes) and non-perspective cameras.
+ROADMAP item that brings it: lines, segmentation masks (planes),
+non-perspective cameras and the multi-device global BA.
 
 Usage:
-    slam = System(config, enable_loop_closing=False)   # device="cuda"
+    slam = System(config)   # device="cuda"
     slam.startup()
     for img, depth, ts in frames:
         slam.feed_RGBD_frame(img, depth, ts)
@@ -52,14 +61,16 @@ from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.config import Config
 from structure_plp_slam_tpu_torch.data import map_database
 from structure_plp_slam_tpu_torch.data import map_state as ms
-from structure_plp_slam_tpu_torch.data.bow import BowIndex
 from structure_plp_slam_tpu_torch.io import trajectory as traj_io
 from structure_plp_slam_tpu_torch.models import frontend as frontend_mod
-from structure_plp_slam_tpu_torch.models import initializer, mapper, tracker
+from structure_plp_slam_tpu_torch.models import global_ba, initializer, mapper, tracker
+from structure_plp_slam_tpu_torch.models import loop_closer as loop_mod
+from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.models.relocalizer import Relocalizer
+from structure_plp_slam_tpu_torch.ops import lie
 from structure_plp_slam_tpu_torch.ops import orb as orb_ops
 from structure_plp_slam_tpu_torch.utils import prng
-from structure_plp_slam_tpu_torch.utils.types import resolve_device, round_up
+from structure_plp_slam_tpu_torch.utils.types import HostCopy, resolve_device, round_up
 
 _log = logging.getLogger("plpslam.torch.system")
 
@@ -187,15 +198,85 @@ def _clear_failed_init(state):
     )
 
 
+def _rebase_pose(R, t, P_old, P_new):
+    """Carry a camera pose through its reference keyframe's correction:
+    the pose relative to the keyframe stays while the keyframe moves from
+    ``P_old`` to ``P_new`` (all world->camera)."""
+    R_rel = R @ P_old[:, :3].T
+    t_rel = t - R_rel @ P_old[:, 3]
+    return R_rel @ P_new[:, :3], R_rel @ P_new[:, 3] + t_rel
+
+
+def _child_poses(old, new, last):
+    """Every pose of ``old`` carried by the delta of keyframe ``last``
+    (old -> new): P_child o P_last_old^-1 o P_last_new. Keyframes inserted
+    while a solve was in flight follow their spanning-tree parent this way
+    (loop_bundle_adjuster.cc:110-145)."""
+    Rc, tc = old[last, :, :3], old[last, :, 3]
+    Rm = Rc.T @ new[last, :, :3]
+    tm = Rc.T @ (new[last, :, 3] - tc)
+    R_child = torch.einsum("kij,jl->kil", old[:, :, :3], Rm)
+    t_child = torch.einsum("kij,j->ki", old[:, :, :3], tm) + old[:, :, 3]
+    return lie.pack_pose(R_child, t_child)
+
+
+def _gba_adopt_step(state, solved_pose, solved_lm, snap_kf_valid, snap_lm_valid,
+                    snap_next_kf: int):
+    """Merge a deferred global-BA result into the map as it is now
+    (loop_bundle_adjuster.cc:100-145): keyframes of the solve's snapshot
+    take the solved poses, later ones ride the delta of the snapshot's
+    newest keyframe; snapshot landmarks take the solved positions,
+    landmarks made since (and lines and planes) ride their reference
+    keyframes' deltas."""
+    K = state.kf_pose.shape[0]
+    old = state.kf_pose
+    existed = (torch.arange(K, device=old.device) < snap_next_kf) & snap_kf_valid
+    last = min(max(snap_next_kf - 1, 0), K - 1)
+    adopted = torch.where(existed[:, None, None], solved_pose,
+                          _child_poses(old, solved_pose, last))
+    keep_lm = snap_lm_valid & state.lm_valid
+    state = state._replace(kf_pose=adopted,
+                           lm_pos=torch.where(keep_lm[:, None], solved_lm, state.lm_pos))
+    ones = torch.ones((K,), dtype=torch.float32, device=old.device)
+    return pg.correct_map_structures(
+        state, old[:, :, :3], old[:, :, 3], ones, adopted[:, :, :3], adopted[:, :, 3], ones,
+        lm_mask=state.lm_valid & ~snap_lm_valid,
+    )
+
+
+def _loopfix_adopt(state, R_opt, t_opt, s_opt, snap_next_kf: int):
+    """Apply a loop correction's pose-graph result to the map as it is
+    now: keyframes of the fix's snapshot (``slot < snap_next_kf``) take
+    the optimized poses (scale folded into SE3), later ones ride the
+    newest snapshot keyframe's delta; landmarks, lines and planes ride
+    their reference keyframes' Sim3 deltas from the current poses."""
+    K = state.kf_pose.shape[0]
+    old = state.kf_pose
+    existed = torch.arange(K, device=old.device) < snap_next_kf
+    new_se3 = lie.pack_pose(R_opt, t_opt / torch.clamp(s_opt, min=1e-12)[:, None])
+    last = min(max(snap_next_kf - 1, 0), K - 1)
+    adopted = torch.where(existed[:, None, None], new_se3, _child_poses(old, new_se3, last))
+    ones = torch.ones((K,), dtype=torch.float32, device=old.device)
+    state = pg.correct_map_structures(
+        state, old[:, :, :3], old[:, :, 3], ones,
+        torch.where(existed[:, None, None], R_opt, adopted[:, :, :3]),
+        torch.where(existed[:, None], t_opt, adopted[:, :, 3]),
+        torch.where(existed, s_opt, ones),
+    )
+    return state._replace(kf_pose=adopted)
+
+
 def _kf_chain(camera, st, slot, pose, ts, feats, kp_lm, next_lm, inv_sigma_sq, ind0,
-              *, do_ba, do_cull_kf, stats_full, num_tri_neighbors, scale_factor,
-              num_levels):
+              bow, *, do_ba, do_cull_kf, stats_full, do_detect, num_tri_neighbors,
+              scale_factor, num_levels):
     """The keyframe processing chain (reference mapping thread,
-    mapping_module.cc:193-285) with lines, segmentation and loop detection
-    off: insert, cull landmarks, triangulate, fuse, local BA, cull
-    keyframes, statistics. The observation indicator ``ind0`` is patched
-    row by row between stages (only fuse's global remap rebuilds it).
-    Returns (state, next_lm, indicator)."""
+    mapping_module.cc:193-285, plus the loop detector's scoring of
+    global_optimization_module.cc) with lines and segmentation off:
+    insert, cull landmarks, triangulate, fuse, local BA, cull keyframes,
+    statistics and, with ``do_detect``, the loop-detection arrays. The
+    observation indicator ``ind0`` is patched row by row between stages
+    (only fuse's global remap rebuilds it). Returns (state, next_lm,
+    indicator, packed detection [K, 3] or None, covisibility or None)."""
     K = st.kf_pose.shape[0]
     dev = st.device
     st, created = mapper.insert_keyframe(camera, st, slot, pose, ts, feats, kp_lm, next_lm)
@@ -231,17 +312,19 @@ def _kf_chain(camera, st, slot, pose, ts, feats, kp_lm, next_lm, inv_sigma_sq, i
         )
     else:
         st = mapper.update_landmark_normals(st, ind)
-    return st, next_lm, ind
+    if not do_detect:
+        return st, next_lm, ind, None, None
+    cov = ms.covisibility_matrix(st, ind)
+    packed = loop_mod._pack_detect_arrays(cov, slot, bow.scores_for_slot(st, slot), st.kf_valid)
+    return st, next_lm, ind, packed, cov
 
 
 @dataclasses.dataclass
 class _PendingFrame:
     """A fed frame whose host-side decisions are deferred by ``track_lag``
-    frames. ``packed`` is the decision vector (pinned host memory on the
-    card, filled asynchronously; ``ready`` is the event that marks it)."""
+    frames; ``packed`` is the decision vector's copy on the host."""
 
-    packed: torch.Tensor
-    ready: Optional[torch.cuda.Event]
+    packed: HostCopy
     feats: dict
     ts: float
     res: Any
@@ -265,10 +348,9 @@ class System:
         track_lag: int = 2,
         auto_grow: bool = True,
         verbose_timing: bool = False,
+        async_loop_ba: bool = True,
         device=None,
     ):
-        if enable_loop_closing:
-            raise _not_ported("loop closing (pass enable_loop_closing=False)", "A12")
         if with_lines:
             raise _not_ported("line tracking", "A14")
         cam_base.dispatch(config.camera)  # non-perspective models raise (A15)
@@ -290,8 +372,18 @@ class System:
         # (GC-RANSAC, initialize/perspective.cc:70-85), by its own YAML key.
         self.init_graph_cut = bool(config.raw.get("Initializer.use_graph_cut", False))
         self.key = prng.PRNGKey(seed)
-        self.relocalizer = Relocalizer(config.camera, BowIndex())
+        # Loop closing and relocalization share the retrieval index.
+        self.enable_loop_closing = enable_loop_closing
+        self.loop_closer = loop_mod.LoopCloser(config.camera, self.device)
+        self.relocalizer = Relocalizer(config.camera, self.loop_closer.bow)
         self.num_relocalizations = 0
+        # The post-loop global BA (the reference's loop-BA thread,
+        # loop_bundle_adjuster.cc:68-145) runs ``gba_num_chunks`` chunks of
+        # ``gba_iters_per_chunk`` iterations over later frames and is
+        # merged at its end; ``async_loop_ba=False`` runs it at once.
+        self.async_loop_ba = bool(async_loop_ba)
+        self.gba_iters_per_chunk = 2
+        self.gba_num_chunks = 5
         cap = round_up(
             orb_ops.OrbExtractor(config.camera.rows, config.camera.cols, config.orb).capacity,
             8,
@@ -302,7 +394,6 @@ class System:
         self.max_landmarks = max_landmarks
         self.num_tri_neighbors = num_triangulation_neighbors
         self.enable_mapping = enable_mapping
-        self.enable_loop_closing = False
         self.num_frames = 0
         self.num_track_steps = 0
         self._running = False
@@ -311,9 +402,16 @@ class System:
     # ------------------------------------------------------------------
     @property
     def state(self) -> ms.MapState:
-        """The current MapState, after draining pending frame decisions."""
+        """The current MapState, after draining pending frame decisions
+        and any loop fix or global BA in flight."""
         self._drain_pending()
         return self._state
+
+    @state.setter
+    def state(self, value):
+        self._drain_pending()
+        self._state = value
+        self._ind_cache = None  # the new map's associations may differ
 
     @property
     def tracking_state(self) -> TrackerState:
@@ -323,6 +421,229 @@ class System:
     def _drain_pending(self):
         while self._pending:
             self._consume(self._pending.popleft())
+        if self._pending_loop is not None:
+            self._consume_pending_loop(force=True)
+        while self._pending_fix is not None:
+            self._advance_pending_fix()
+        self._finish_deferred_gba()
+
+    # ------------------------------------------------------------------
+    # Loop closing as deferred phases (reference: the loop thread,
+    # global_optimization_module.cc:90-296, and the loop-BA thread).
+    # ------------------------------------------------------------------
+    def _consume_pending_loop(self, force=False):
+        """Gate the previous keyframe's loop detection on the host and, on
+        a candidate, start its Sim3 validation; the validation's gate, the
+        correction and the pose graph run in later frames
+        (:meth:`_advance_pending_fix`). The read waits for nothing: while
+        the detection's copy has not landed, it stays pending (no new
+        detection starts) for at most 3 keyframes, then it is read."""
+        kf_cur, packed = self._pending_loop
+        if not force and self._pending_loop_age < 3 and not packed[0].ready():
+            self._pending_loop_age += 1
+            return
+        self._pending_loop = None
+        self._pending_loop_age = 0
+        with self.timer.stage("loop_detect"):
+            cand = self.loop_closer.detect_consume(packed, kf_cur)
+        if cand is None or self._pending_fix is not None:
+            return  # no loop, or one is in flight (its cool-down covers this)
+        lc = self.loop_closer
+        prev_cooldown = lc.last_loop_kf
+        # The cool-down starts now, so detection pauses while the fix is in
+        # flight; a rejected candidate restores it.
+        lc.last_loop_kf = kf_cur
+        self._pending_fix = {
+            "phase": "validate", "kf_cur": int(kf_cur), "cand": int(cand),
+            "prev_cooldown": prev_cooldown,
+            "packed": lc.validate_dispatch(self._state, kf_cur, cand, self._split_key()),
+            "n0": self.next_kf, "K": self._state.kf_pose.shape[0],
+        }
+
+    def _advance_pending_fix(self):
+        """Advance the loop fix in flight by one phase (once per fed frame):
+
+        validate -> gate the Sim3; start the host copies the correction
+                    needs (poses, validity, the two keyframes'
+                    covisibility rows, the strong-pair list);
+        correct  -> numpy neighbourhood correction and pose-graph edges on
+                    those copies, then device work: graph solve, adoption
+                    into the current map, duplicate fusion through the
+                    fused matcher, tracker pose rebase, deferred global BA.
+        """
+        f = self._pending_fix
+        if f is None:
+            return
+        lc = self.loop_closer
+        st = self._state
+        if st.kf_pose.shape[0] != f["K"]:
+            _log.info("pending loop fix dropped (map capacity grew)")
+            lc.last_loop_kf = f["prev_cooldown"]
+            self._pending_fix = None
+            return
+        if f["phase"] == "validate":
+            with self.timer.stage("loopfix.validate"):
+                val = lc.validate_consume(f["packed"])
+                if val is None:
+                    lc.last_loop_kf = f["prev_cooldown"]
+                    self._pending_fix = None
+                    return
+                f["val"] = val
+                kf_cur, cand = f["kf_cur"], f["cand"]
+                _log.info("loop closure: keyframe %d -> %d (s=%.3f)", kf_cur, cand, val[2])
+                cov = ms.covisibility_matrix(st, self._obs_indicator())
+                f["fetch"] = {
+                    "pose": HostCopy(st.kf_pose), "valid": HostCopy(st.kf_valid),
+                    "rows": HostCopy(cov[[kf_cur, cand]]),
+                    "pairs": HostCopy(loop_mod._strong_pair_list(st, cap=4096)),
+                }
+                f["n1"] = self.next_kf
+                f["phase"] = "correct"
+            return
+        with self.timer.stage("loopfix.correct"):
+            kf_cur, cand = f["kf_cur"], f["cand"]
+            R21, t21, s21 = f["val"]
+            # A global BA still in flight solved a map from before this
+            # correction: merge it first.
+            self._finish_deferred_gba()
+            fetch = {k: v.numpy() for k, v in f["fetch"].items()}
+            pose_h, valid_h = fetch["pose"], fetch["valid"]
+            R_new, t_new, s_new, _ = lc.correct_host_poses(
+                pose_h, valid_h, fetch["rows"], kf_cur, cand, R21, t21, s21,
+                neigh_extend=range(f["n0"], f["n1"]))
+            # The pose graph starts from the correction, scale folded into SE3.
+            init = pose_h.copy()
+            init[:, :, :3] = R_new
+            init[:, :, 3] = t_new / np.maximum(s_new, 1e-12)[:, None]
+            prob, valid_ids = lc.build_graph_problem(init, valid_h, fetch["pairs"], cand)
+            st = self._state
+            P_old_cur = st.kf_pose[kf_cur]
+            if prob is None:  # a tiny map: the neighbourhood correction alone
+                R_opt, t_opt, s_opt = (torch.as_tensor(a, device=self.device)
+                                       for a in (R_new, t_new, s_new))
+            else:
+                R_opt, t_opt, s_opt = lc.solve_graph(prob, valid_ids, st.kf_pose.shape[0])
+            self._state = _loopfix_adopt(st, R_opt, t_opt, s_opt, f["n1"])
+            # Fuse the duplicated landmarks around the closed loop on the
+            # corrected geometry (global_optimization_module.cc:257-260).
+            cand_mask = torch.zeros((self._state.kf_pose.shape[0],), dtype=torch.bool,
+                                    device=self.device)
+            cand_mask[cand] = True
+            self._state, _ = mapper.fuse_into_keyframe(
+                self.camera, self._state, kf_cur, ms.local_landmark_mask(self._state, cand_mask))
+            # The tracker goes on from the corrected geometry.
+            self.pose = _rebase_pose(*self.pose, P_old_cur, self._state.kf_pose[kf_cur])
+            self._reset_velocity()
+            self._ind_cache = None
+            lc.loop_edges.append((kf_cur, cand, np.asarray(R21), np.asarray(t21), float(s21)))
+            lc.last_loop_kf = kf_cur
+            lc._continuity.clear()
+            lc.num_loops_closed += 1
+            if self.async_loop_ba:
+                self._start_deferred_gba(anchor_kf=cand)
+            else:
+                pose_before = self._state.kf_pose
+                self._state = global_ba.run_global_ba(self.camera, self._state,
+                                                      self.frontend.inv_sigma_sq, anchor_kf=cand)
+                ones = torch.ones((pose_before.shape[0],), dtype=torch.float32,
+                                  device=self.device)
+                self._state = pg.correct_map_structures(
+                    self._state, pose_before[:, :, :3], pose_before[:, :, 3], ones,
+                    self._state.kf_pose[:, :, :3], self._state.kf_pose[:, :, 3], ones,
+                    lm_mask=torch.zeros_like(self._state.lm_valid))
+                self._ind_cache = None
+        self._pending_fix = None
+
+    def _start_deferred_gba(self, anchor_kf: int):
+        """Snapshot the map after the pose graph and start the host copies
+        the observation enumeration needs; the solve advances one phase per
+        fed frame (:meth:`_advance_deferred_gba`)."""
+        st = self._state
+        fetch = {"kf_valid": st.kf_valid, "kp_valid": st.kf_kp_valid, "lm_idx": st.kf_lm_idx,
+                 "lm_valid": st.lm_valid, "xy": st.kf_xy, "xr": st.kf_xr, "level": st.kf_level}
+        self._pending_gba = {
+            "phase": "fetch", "anchor": int(anchor_kf),
+            "fetch": {k: HostCopy(v) for k, v in fetch.items()},
+            "snap_pose": st.kf_pose, "snap_lm": st.lm_pos,
+            "snap_kf_valid": st.kf_valid, "snap_lm_valid": st.lm_valid,
+            "snap_next_kf": self.next_kf, "K": st.kf_pose.shape[0], "L": st.lm_pos.shape[0],
+        }
+
+    def _advance_deferred_gba(self):
+        """Advance the deferred global BA by one bounded step: read the
+        copies; enumerate observations and pairs (numpy); one chunk of
+        ``gba_iters_per_chunk`` iterations; or merge into the map."""
+        p = self._pending_gba
+        if p is None:
+            return
+        st = self._state
+        if st.kf_pose.shape[0] != p["K"] or st.lm_pos.shape[0] != p["L"]:
+            _log.info("deferred global BA dropped (map capacity grew)")
+            self._pending_gba = None
+            return
+        if p["phase"] == "fetch":
+            # The copies only; the enumeration runs on the next frame, so
+            # neither step alone holds up one frame for both.
+            with self.timer.stage("gba.prepare"):
+                p["host"] = {k: v.numpy() for k, v in p.pop("fetch").items()}
+                p["phase"] = "enumerate"
+            return
+        if p["phase"] == "enumerate":
+            with self.timer.stage("gba.prepare"):
+                f = p.pop("host")
+                data = global_ba.prepare_from_arrays(
+                    f["kf_valid"], f["kp_valid"], f["lm_idx"], f["lm_valid"], f["xy"], f["xr"],
+                    f["level"], self.frontend.inv_sigma_sq.cpu().numpy(), device=self.device)
+                if data.num_obs < global_ba.MIN_OBS:
+                    self._pending_gba = None
+                    return
+                K = p["K"]
+                p["data"] = data
+                p["cam_fixed"] = torch.arange(K, device=self.device) == p["anchor"]
+                p["carry"] = (p["snap_pose"], p["snap_lm"])
+                p["aux"] = None
+                if K > loop_mod.DENSE_GRAPH_MAX_K:
+                    c1, c2, raw_of_comp = global_ba.prepare_chain_pairs(data, f["kf_valid"])
+                    c1, c2 = global_ba.pad_chain_pairs(c1, c2)
+                    p["aux"] = tuple(torch.from_numpy(a).to(self.device)
+                                     for a in (c1, c2, raw_of_comp))
+                p["chunks_left"] = self.gba_num_chunks
+                p["phase"] = "solve"
+            return
+        if p["phase"] == "solve":
+            with self.timer.stage("gba.chunk"):
+                cam_pose, lm_pos = p["carry"]
+                args = (self.camera, cam_pose, p["snap_kf_valid"], p["cam_fixed"], lm_pos,
+                        p["snap_lm_valid"], p["data"])
+                if p["aux"] is not None:
+                    p["carry"] = global_ba.solve_pcg(*args, *p["aux"],
+                                                     num_iters=self.gba_iters_per_chunk)
+                else:
+                    p["carry"] = global_ba.solve(*args, num_iters=self.gba_iters_per_chunk)
+                p["chunks_left"] -= 1
+                if p["chunks_left"] <= 0:
+                    p["phase"] = "adopt"
+            return
+        with self.timer.stage("gba.adopt"):
+            solved_pose, solved_lm = p["carry"]
+            P_old_ref = st.kf_pose[self.ref_kf]
+            self._state = _gba_adopt_step(st, solved_pose, solved_lm, p["snap_kf_valid"],
+                                          p["snap_lm_valid"], p["snap_next_kf"])
+            self.pose = _rebase_pose(*self.pose, P_old_ref, self._state.kf_pose[self.ref_kf])
+            self._reset_velocity()
+            self._ind_cache = None
+            _log.info("deferred global BA merged (anchor=%d)", p["anchor"])
+        self._pending_gba = None
+
+    def _finish_deferred_gba(self):
+        """Run a deferred global BA to its end now (drain points, a new
+        loop correction, growth)."""
+        while self._pending_gba is not None:
+            self._advance_deferred_gba()
+
+    def _reset_velocity(self):
+        self.vel = (torch.eye(3, dtype=torch.float32, device=self.device),
+                    torch.zeros((3,), dtype=torch.float32, device=self.device))
 
     # ------------------------------------------------------------------
     # Lifecycle (reference: system::startup/shutdown/reset).
@@ -337,7 +658,12 @@ class System:
         self._running = False
 
     def reset(self):
+        # Pending decisions and loop work refer to the map being dropped.
         self._pending.clear()
+        self._pending_loop = None  # (keyframe, (HostCopy of [K, 3], covisibility))
+        self._pending_loop_age = 0
+        self._pending_fix: Optional[dict] = None
+        self._pending_gba: Optional[dict] = None
         self._state = ms.create(self.max_keyframes, self.frontend.pad_to,
                                 self.max_landmarks, device=self.device)
         self._tracking_state = TrackerState.NOT_INITIALIZED
@@ -426,16 +752,13 @@ class System:
 
         # Defer the host-side decisions: the packed vector's copy to the
         # host starts now and is read ``track_lag`` frames later.
-        ready = None
-        if packed.is_cuda:
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            packed = host
-        entry = _PendingFrame(packed=packed, ready=ready, feats=feats, ts=ts, res=res,
+        entry = _PendingFrame(packed=HostCopy(packed), feats=feats, ts=ts, res=res,
                               frames_since_kf=self.frames_since_kf)
         self._pending.append(entry)
+        # One phase of a loop fix and one step of a deferred global BA in
+        # flight ride along with each frame.
+        self._advance_pending_fix()
+        self._advance_deferred_gba()
         cur_ok = True
         while len(self._pending) > self.track_lag:
             oldest = self._pending.popleft()
@@ -453,8 +776,6 @@ class System:
         trajectory record (tracking_module.cc:651-657,
         keyframe_inserter.cc:54-114). Returns False if the frame was lost."""
         with self.timer.stage("decision_fetch"):
-            if entry.ready is not None:
-                entry.ready.synchronize()
             vals = entry.packed.numpy()
         num_tracked = int(vals[_PK_NUM_TRACKED])
         ref_tracked = int(vals[_PK_REF_TRACKED])
@@ -531,10 +852,8 @@ class System:
         R_r, t_r, kp_lm_r, ref = out
         self.num_relocalizations += 1
         _log.info("relocalized against keyframe %d", ref)
-        dev = self.device
         self.pose = (R_r, t_r)
-        self.vel = (torch.eye(3, dtype=torch.float32, device=dev),
-                    torch.zeros((3,), dtype=torch.float32, device=dev))
+        self._reset_velocity()
         self.last_kp_lm = kp_lm_r
         self.ref_kf = ref
         self._ref_kf_dev = ref
@@ -548,7 +867,12 @@ class System:
         return True
 
     def _grow(self, **kw):
-        """Double the selected map capacities (slot ids stay)."""
+        """Double the selected map capacities (slot ids stay). A loop fix or
+        global BA in flight runs to its end first: its snapshots have the
+        old shapes."""
+        while self._pending_fix is not None:
+            self._advance_pending_fix()
+        self._finish_deferred_gba()
         _log.info("growing map capacities: %s", ", ".join(sorted(kw)))
         self._state = map_database.grow(self._state, **kw)
         self.max_keyframes = self._state.kf_pose.shape[0]
@@ -650,21 +974,31 @@ class System:
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, entry: _PendingFrame):
-        """Run the keyframe chain on the frame and publish its results."""
+        """Run the keyframe chain on the frame and publish its results. The
+        previous keyframe's loop detection is gated first; this chain
+        scores the new keyframe for the next one (no new detection while
+        one is pending)."""
+        if self.enable_loop_closing and self._pending_loop is not None:
+            self._consume_pending_loop()
         res = entry.res
         slot = self.next_kf
         pose = torch.cat([res.R, res.t[:, None]], 1)
         params = self.frontend.extractor.params
+        lc = self.loop_closer
+        do_detect = (self.enable_loop_closing and self.next_kf + 1 >= 8
+                     and slot - lc.last_loop_kf >= loop_mod.MIN_GAP
+                     and self._pending_loop is None)
         # The JAX System draws the chain's key here (for planes and lines);
         # the port draws it too, so later draws stay in step.
         self._split_key()
         with self.timer.stage("keyframe.chain"):
-            st, next_lm, ind = _kf_chain(
+            st, next_lm, ind, packed, cov = _kf_chain(
                 self.camera, self._state, slot, pose, entry.ts, entry.feats, res.kp_lm,
-                self.next_lm, self.frontend.inv_sigma_sq, self._obs_indicator(),
+                self.next_lm, self.frontend.inv_sigma_sq, self._obs_indicator(), lc.bow,
                 do_ba=self.next_kf + 1 >= 3,
                 do_cull_kf=self.next_kf + 1 >= 5,
                 stats_full=slot % 2 == 0,
+                do_detect=do_detect,
                 num_tri_neighbors=self.num_tri_neighbors,
                 scale_factor=params.scale_factor,
                 num_levels=params.num_levels,
@@ -678,6 +1012,9 @@ class System:
         self._ref_kf_dev = slot
         # The chain returns the post-chain indicator: seed the cache.
         self._ind_cache = ind
+        if do_detect:  # gated at the next keyframe, once the copy has landed
+            self._pending_loop = (slot, (HostCopy(packed), cov))
+            self._pending_loop_age = 0
 
     # ------------------------------------------------------------------
     def _obs_indicator(self):
@@ -739,12 +1076,19 @@ class System:
         self._drain_pending()
         return int(self._state.lm_valid.sum())
 
+    def disable_loop_detector(self):
+        self.enable_loop_closing = False
+
+    def enable_loop_detector(self):
+        self.enable_loop_closing = True
+
     def metrics(self) -> dict:
         self._drain_pending()
         return {
             "frames": self.num_frames,
             "keyframes": self.num_keyframes,
             "landmarks": self.num_landmarks,
+            "loops_closed": self.loop_closer.num_loops_closed,
             "relocalizations": self.num_relocalizations,
             "tracking_state": self._tracking_state.value,
             "timing": self.timer.summary(),

@@ -93,6 +93,33 @@ def nonzero_static(mask, size: int, fill_value: int):
     return out
 
 
+class HostCopy:
+    """A tensor's copy on the host, started without waiting: on the card a
+    pinned buffer filled by a non-blocking copy and a CUDA event that marks
+    it (the role of the JAX package's ``copy_to_host_async``); a CPU tensor
+    is its own copy."""
+
+    def __init__(self, t):
+        self.event = None
+        if t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            t = host
+        self.host = t
+
+    def ready(self) -> bool:
+        """Whether the copy has landed (never waits)."""
+        return self.event is None or self.event.query()
+
+    def numpy(self):
+        """The copy as a numpy array (waits for it on the card)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.detach().numpy()
+
+
 def scatter_set(target, idx, vals, valid):
     """``target[idx[i]] = vals[i]`` for every ``i`` with ``valid[i]``
     (returns a new tensor; rows of ``target`` are along dim 0).

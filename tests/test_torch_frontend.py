@@ -146,3 +146,47 @@ def test_mono_frontend_with_mask(frame):
     np.testing.assert_array_equal(tr["xr"], jr["xr"])
     np.testing.assert_array_equal(tr["depth"], jr["depth"])
     np.testing.assert_array_equal(tr["level"], jr["level"])
+
+
+def _fma_chains(X, Y, lanes=1):
+    """``X @ Y`` in f32 with one fused multiply-add chain per accumulator,
+    k assigned to accumulator k % lanes, the accumulators added in order
+    (numpy; a product of two f32 is exact in f64, so one f64 add rounded
+    to f32 is an FMA)."""
+    acc = np.zeros((lanes, X.shape[0], Y.shape[1]), np.float32)
+    for k in range(X.shape[1]):
+        rows = X[:, k] != 0
+        if rows.any():
+            a = acc[k % lanes]
+            a[rows] = (a[rows].astype(np.float64)
+                       + X[rows, k, None].astype(np.float64) * Y[k][None, :]).astype(np.float32)
+    return acc.sum(axis=0, dtype=np.float32) if lanes > 1 else acc[0]
+
+
+@pytest.mark.slow
+def test_resize_summation_order():
+    """ROADMAP C17, the evidence: which f32 summation order gives XLA:CPU's
+    ``(A @ img) @ B.T`` of the pyramid resize, bit for bit, on a random
+    640x480 frame. The first product is one FMA chain in increasing k at
+    every level. The second is one FMA chain with two accumulators (even
+    and odd k) at levels 1 and 6, close to a single chain at levels 2-4
+    and 7, and neither at level 5: no one order reproduces every level,
+    so the port keeps its matmul (printed: the share of equal pixels)."""
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 255, (480, 640)).astype(np.float32)
+    shares = {}
+    for lv, (h, w) in enumerate(jimg.pyramid_shapes(480, 640, 8, 1.2)[1:], start=1):
+        ref = np.asarray(jimg.resize_bilinear(jnp.asarray(img), (h, w)))
+        A = timg._resize_matrix(480, h)
+        B = np.ascontiguousarray(timg._resize_matrix(640, w).T)
+        first = np.asarray(jnp.asarray(A) @ jnp.asarray(img))
+        chain = _fma_chains(A, img)
+        assert (chain == first).all(), lv
+        port = timg.resize_bilinear(torch.from_numpy(img), (h, w)).numpy()
+        shares[lv] = {"torch": float((port == ref).mean())}
+        for lanes in (1, 2):
+            shares[lv][f"fma x{lanes}"] = float((_fma_chains(chain, B, lanes) == ref).mean())
+    print(shares)
+    assert shares[1]["fma x2"] == shares[6]["fma x2"] == 1.0
+    assert all(shares[lv]["fma x1"] > 0.99 for lv in (2, 3, 4, 7))
+    assert max(shares[5].values()) < 1.0

@@ -148,7 +148,6 @@ def test_system_default_device_needs_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,camera,item", [
-    (dict(enable_loop_closing=True), TCAM, "A12"),
     (dict(with_lines=True), TCAM, "A14"),
     ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.FISHEYE, **_KW), "A15"),
     ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.EQUIRECTANGULAR, **_KW), "A15"),
@@ -157,6 +156,23 @@ def test_unported_options_raise(kwargs, camera, item):
     args = {**SIZES, **kwargs, "device": "cpu"}
     with pytest.raises(NotImplementedError, match=item):
         System(_cfg(camera), **args)
+
+
+def test_loop_closing_system_runs():
+    """Loop closing is on by default (it raised until the slice that
+    ported it): the System builds and runs the 6 frames as the JAX System
+    does. Loop detection starts at the eighth keyframe, so nothing moves
+    here (tests/test_torch_loop_system.py drives it)."""
+    js, jposes = run_jax()
+    ts = System(_cfg(), device="cpu", **{**SIZES, "enable_loop_closing": True})
+    assert ts.enable_loop_closing
+    tposes = _run(ts, _frames())
+    _assert_systems_agree(js, jposes, ts, tposes)
+    assert ts.metrics()["loops_closed"] == 0
+    ts.disable_loop_detector()
+    assert not ts.enable_loop_closing
+    ts.enable_loop_detector()
+    assert ts.enable_loop_closing
 
 
 @pytest.mark.parametrize("setup", [CameraSetup.MONOCULAR, CameraSetup.STEREO])
