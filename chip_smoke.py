@@ -35,7 +35,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 7. the monocular path: 40 frames at 0.08 m a frame, two-view init, on the
    JAX monocular test's sequence (seed 42): TRACKING, >= 30 frames in the
    trajectory, Sim3-aligned ATE < 0.08 m; the seed-0 and seed-1
-   sequences reported; driven with fixed summation orders
+   sequences (24 frames each) reported; driven with fixed summation orders
    (deterministic()), so that a run gives one result;
 8. the stereo path: 40 rendered pairs, 0.1 m baseline; TRACKING, tracked
    >= 39, > 200 landmarks, ATE < 0.06 m;
@@ -54,7 +54,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    the deferred global BA merged, TRACKING, the last keyframe within
    0.35 m of its ground truth, and the loop fix's fuse call (its own call
    site, loop_fuse) with active rows; its input timed like phase 5's.
-   Each of 4 and 7-11 runs at the main path's width with the kernel's
+   Each of 4 and 7-12 runs at the main path's width (but phase 12's
+   gated monocular case) with the kernel's
    counts set to 0 before it and read after, and fails unless every
    matcher call of the path (three per track_frame, the relocalizer's
    candidates included, one per keyframe chain, one per loop fix)
@@ -62,8 +63,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    call; it prints frames/s, stage medians and the card line, and holds
    the kernel against its plain version on every matcher input of the
    path (exact);
-12. whether torch.linalg.svd / eigh / det on the card make the host wait;
-13. one JSON line with each new path's numbers, one with every kernel's
+12. points + lines + planes (plp_paths): RGB-D with lines and instance
+   masks on the grid-textured scene, 24 frames (TRACKING, ATE < 0.06 m,
+   >= 4 lines with > 60% of their endpoints within 0.4 m of the scene's
+   planes, >= 1 plane, each |n_z| > 0.98 with an offset within 0.3 m of
+   3.5 or 6, > 30 plane-owned landmarks, every line and plane stage run),
+   then profiled like phase 6 and one frame's host syncs counted;
+   monocular + lines (gated at the JAX test's 320x240, reported at full
+   width) and stereo + lines (TRACKING, >= 4 lines, > 60% near the
+   planes, ATE < 0.06 m, > 200 landmarks), with the matcher checks of
+   phases 4 and 7-11;
+13. whether torch.linalg.svd / eigh / det on the card make the host wait;
+14. one JSON line with each path's numbers, one with every kernel's
    numbers (launches per path added), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -103,6 +114,10 @@ CALL_SITES = {
 REPLACES = "structure_plp_slam_tpu/ops/pallas_matching.py:42"
 SOURCE = "structure_plp_slam_tpu_torch/csrc/fused_match.cu"
 NUM_FRAMES = 40
+REPORTED_MONO_FRAMES = 24  # phase 7's reported seeds (0 and 1)
+PLP_FRAMES = 24    # phase 12 (a)
+LINE_FRAMES = 16   # phase 12 (b) and (c)
+PLP_KF_INTERVAL = 2
 REPS = 20  # calls per profiler session
 # The inputs phase 5 times, saved on the host (for compare_fused_match.py too).
 INPUTS = Path(__file__).resolve().parent / "build" / "fused_match_inputs.pt"
@@ -330,22 +345,26 @@ def bitplane_yardstick_ms(args):
     return device_ms(lambda: torch.matmul(lm_bits, kp_bits.T))[0]
 
 
-def profile_frames(make_system, frames, warm, count):
+def profile_frames(make_system, frames, warm, count, feed=None, label="profile"):
     """torch.profiler over ``count`` frames after ``warm`` untraced ones:
     device kernels per frame, device busy share of the wall time, and the
-    kernels with the most device time."""
+    kernels with the most device time. ``feed(slam, frame)`` feeds one
+    frame (RGB-D (image, depth, timestamp) by default)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if feed is None:
+        def feed(slam, f):
+            slam.feed_RGBD_frame(f[0], f[1], f[2])
     slam = make_system(verbose_timing=False)
     slam.startup()
-    for img, depth, ts in frames[:warm]:
-        slam.feed_RGBD_frame(img, depth, ts)
+    for f in frames[:warm]:
+        feed(slam, f)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for img, depth, ts in frames[warm:warm + count]:
-            slam.feed_RGBD_frame(img, depth, ts)
+        for f in frames[warm:warm + count]:
+            feed(slam, f)
         slam.shutdown()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -354,7 +373,7 @@ def profile_frames(make_system, frames, warm, count):
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and not e.name.startswith("stage.")]
     if not kernels:
-        print("profile: the profiler recorded no device activity (not measured)")
+        print(f"{label}: the profiler recorded no device activity (not measured)")
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -402,15 +421,15 @@ def profile_frames(make_system, frames, warm, count):
                        "host_ms_per_call": cpu / c / 1e3}
                    for k, (c, n, us, cpu) in stages.items()},
     }
-    print(f"profile: {count} frames, wall {out['wall_ms_per_frame']:.3f} ms/frame, device busy "
+    print(f"{label}: {count} frames, wall {out['wall_ms_per_frame']:.3f} ms/frame, device busy "
           f"{out['device_busy_ms_per_frame']:.3f} ms/frame, idle share "
           f"{out['device_idle_share']:.4f}, {out['device_ops_per_frame']:.1f} device ops/frame")
     for name, s in out["stages"].items():
-        print(f"profile stage {name}: {s['calls']} calls, {s['device_ops_per_call']:.1f} device "
+        print(f"{label} stage {name}: {s['calls']} calls, {s['device_ops_per_call']:.1f} device "
               f"ops, {s['device_ms_per_call']:.3f} device ms, {s['host_ms_per_call']:.3f} host ms "
               f"per call (under the profiler)")
     for t in out["top"]:
-        print(f"profile top: {t['ms']:.3f} ms in {t['count']} x {t['name']}")
+        print(f"{label} top: {t['ms']:.3f} ms in {t['count']} x {t['name']}")
     return out
 
 
@@ -678,8 +697,9 @@ def other_paths(fm, cam, cfg, N, device="cuda", capacities=(256, 32768)):
     mono_cam = dataclasses.replace(cam, setup=CameraSetup.MONOCULAR, focal_x_baseline=0.0)
     mono_feed = lambda s, f: s.feed_monocular_frame(f[0], f[2])  # noqa: E731
     for seed, name in ((42, "mono"), (0, "mono_seed0"), (1, "mono_seed1")):
-        frames, poses = synthetic_scene.make_sequence(np.random.default_rng(seed), mono_cam,
-                                                      NUM_FRAMES, step=0.08)
+        frames, poses = synthetic_scene.make_sequence(
+            np.random.default_rng(seed), mono_cam,
+            NUM_FRAMES if name == "mono" else REPORTED_MONO_FRAMES, step=0.08)
         slam = system(dataclasses.replace(cfg, camera=mono_cam), max_kf_interval=3)
         with deterministic():
             r = drive_path(name, fm, recorder(), slam, mono_feed, frames)
@@ -898,6 +918,223 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768)):
     return run, fuse_inputs[-1]
 
 
+def line_z(slam):
+    """Valid line endpoints (world) and their z coordinates."""
+    st = slam.state
+    eps = st.ln_endpoints[st.ln_valid].cpu().numpy()
+    return eps, np.concatenate([eps[:, 2], eps[:, 5]])
+
+
+def near_planes(z, tol):
+    """Share of ``z`` within ``tol`` of the scene's planes (z = 3.5, 6)."""
+    return float(((np.abs(z - 6.0) < tol) | (np.abs(z - 3.5) < tol)).mean()) if len(z) else 0.0
+
+
+def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
+    """Phase 12: point + line + plane SLAM at the main path's width and
+    capacities, on the grid-textured scene (numpy seed 0) with the JAX
+    tests' gates (tests/test_line_system.py, tests/test_planes.py,
+    tests/test_stereo_line_system.py):
+
+    (a) plp: RGB-D, lines on, loop closing on (the default), every frame
+        with the instance mask np.where(depth < 4.5, 1, 2), 24 frames at
+        0.06 m a frame, max_kf_interval=PLP_KF_INTERVAL; then the same
+        frames under torch.profiler and one frame under the sync debug
+        mode;
+    (b) mono_lines: monocular, lines on, 16 frames at 0.08 m a frame,
+        max_kf_interval=3, fixed sums (deterministic()), the texture of
+        test_mono_point_line_slam (numpy seed 42): gated at that test's
+        320x240 configuration, and driven at the main path's width too
+        (mono_lines_full, reported: ROADMAP C17);
+    (c) stereo_lines: stereo (0.1 m baseline), lines on, 16 frames,
+        max_kf_interval=2, test_stereo_point_line_slam's texture (seed
+        42): two-view line triangulation and the stereo endpoint depths
+        on the card.
+    Returns each path's numbers."""
+    import dataclasses
+
+    from structure_plp_slam_tpu_torch.camera import CameraSetup
+    from structure_plp_slam_tpu_torch.io import trajectory as traj_io
+    from structure_plp_slam_tpu_torch.models import mapper, tracker
+    from structure_plp_slam_tpu_torch.ops.orb import OrbParams
+    from structure_plp_slam_tpu_torch.system import System, TrackerState
+    from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+    runs = {}
+    mono_cam = dataclasses.replace(cam, setup=CameraSetup.MONOCULAR, focal_x_baseline=0.0)
+    textures = {seed: synthetic_scene.make_texture(np.random.default_rng(seed), grid=True)
+                for seed in (0, 42)}
+
+    def render(c, n, step, baseline=None, seed=0):
+        tex = textures[seed]
+        poses = synthetic_scene.trajectory(n, step=step)
+        frames = []
+        for i, (R, t) in enumerate(poses):
+            img, depth = synthetic_scene.render(c, tex, R, t)
+            other = np.where(depth < 4.5, 1, 2).astype(np.int32)
+            if baseline is not None:
+                other, _ = synthetic_scene.render(c, tex, R, t - np.array([baseline, 0.0, 0.0]))
+            frames.append((img, depth, other, float(i) / 30.0))
+        return frames, poses
+
+    def system(config, verbose_timing=True, **kw):
+        return System(config, max_keyframes=capacities[0], max_landmarks=capacities[1],
+                      with_lines=True, verbose_timing=verbose_timing, device="cuda", **kw)
+
+    def recorder():
+        return SiteRecorder(fm, tracker, mapper, N)
+
+    def line_stages(r, stages):
+        r["line_stage_median_ms"] = {k: r["stage_median_ms"].get(k) for k in stages}
+        r["line_stage_count"] = {k: r["stage_count"].get(k, 0) for k in stages}
+
+    # ---- (a) RGB-D points + lines + planes ------------------------------
+    frames, poses = render(cam, PLP_FRAMES, 0.06)
+    plp_feed = lambda s, f: s.feed_RGBD_frame(f[0], f[1], f[3], seg_mask=f[2])  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    slam = system(cfg, max_kf_interval=PLP_KF_INTERVAL)
+    r = drive_path("plp", fm, recorder(), slam, plp_feed, frames)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    ate = ate_of(traj_io, slam, poses, align_scale=False)
+    st = slam.state
+    eps, z = line_z(slam)
+    pv = st.pl_valid.cpu().numpy()
+    coefs = st.pl_coef.cpu().numpy()[pv]
+    planes_ok = [bool(abs(c[2]) > 0.98 and min(abs(abs(c[3]) - 3.5), abs(abs(c[3]) - 6.0)) < 0.3)
+                 for c in coefs]
+    owned = int(((st.lm_plane >= 0) & st.lm_valid).sum())
+    r["gates"] = {"ate_m": ate, "kf_interval": PLP_KF_INTERVAL,
+                  "lines_created": int(slam.next_line),
+                  "lines_valid": int(len(eps)), "line_endpoints_near_planes": near_planes(z, 0.4),
+                  "planes": int(pv.sum()), "plane_coefs": coefs.tolist(), "planes_ok": planes_ok,
+                  "plane_owned_landmarks": owned, "peak_mib": peak_mib}
+    line_stages(r, ("frontend.lines", "track.lines", "keyframe.lines", "keyframe.planes"))
+    print(f"path plp: ATE {ate:.6f} m; lines created {int(slam.next_line)}, valid {len(eps)}, "
+          f"endpoints near the planes {r['gates']['line_endpoints_near_planes']:.4f}; planes "
+          f"{int(pv.sum())} {coefs.tolist()}; plane-owned landmarks {owned}; peak "
+          f"torch.cuda.max_memory_allocated {peak_mib:.1f} MiB; line/plane stage medians "
+          f"{r['line_stage_median_ms']} (counts {r['line_stage_count']})")
+    gate("plp", r["state"] == TrackerState.TRACKING.value, f"ended in state {r['state']}")
+    gate("plp", ate < 0.06, f"ATE {ate} >= 0.06 m")
+    gate("plp", int(slam.next_line) >= 4 and len(eps) >= 4, f"{len(eps)} lines")
+    gate("plp", r["gates"]["line_endpoints_near_planes"] > 0.6, f"line endpoints off-plane: {z}")
+    gate("plp", pv.sum() >= 1 and all(planes_ok), f"planes {coefs.tolist()}")
+    gate("plp", owned > 30, f"{owned} plane-owned landmarks")
+    gate("plp", all(r["line_stage_count"].values()), "a line or plane stage never ran")
+    r["profile"] = profile_frames(
+        lambda verbose_timing: system(cfg, verbose_timing, max_kf_interval=PLP_KF_INTERVAL),
+        frames, warm=4, count=8, feed=plp_feed, label="profile plp")
+    r["syncs_per_frame"] = count_syncs(
+        lambda: system(cfg, False, max_kf_interval=PLP_KF_INTERVAL), frames, plp_feed)
+    runs["plp"] = r
+
+    # ---- (b) monocular points + lines -------------------------------------
+    # Gated at test_mono_point_line_slam's own configuration (320x240,
+    # 600 keypoints over 4 levels, K = 32, L = 8192); at the main path's
+    # width reported only: there the port's features let the two-view
+    # init succeed on frames 0-1, where the JAX System's fail it and it
+    # initializes on frame 4 (ROADMAP C17; PERF.md §5 has both CPU runs).
+    small = dataclasses.replace(mono_cam, cols=320, rows=240, fx=260.0, fy=260.0, cx=159.5,
+                                cy=119.5)
+    for name, c, orb, caps, gated in (
+            ("mono_lines", small, OrbParams(max_num_keypts=600, num_levels=4), (32, 8192), True),
+            ("mono_lines_full", mono_cam, cfg.orb, capacities, False)):
+        frames, poses = render(c, LINE_FRAMES, 0.08, seed=42)
+        slam = System(dataclasses.replace(cfg, camera=c, orb=orb), max_keyframes=caps[0],
+                      max_landmarks=caps[1], with_lines=True, verbose_timing=True,
+                      device="cuda", max_kf_interval=3, enable_loop_closing=False)
+        with deterministic():
+            r = drive_path(name, fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to),
+                           slam, lambda s, f: s.feed_monocular_frame(f[0], f[3]), frames)
+        ate = ate_of(traj_io, slam, poses, align_scale=True)
+        # The map Sim3-aligned to ground truth through the camera centres
+        # (paired by timestamp: the trajectory starts at the two-view init).
+        est = slam.frame_trajectory()
+        A = np.stack([-P[:, :3].T @ P[:, 3] for _, P in est])
+        B = np.stack([-poses[round(ts * 30)][0].T @ poses[round(ts * 30)][1] for ts, _ in est])
+        mA, mB = A.mean(0), B.mean(0)
+        U, D, Vt = np.linalg.svd((B - mB).T @ (A - mA) / len(A))
+        S = np.eye(3)
+        if np.linalg.det(U @ Vt) < 0:
+            S[2, 2] = -1
+        R_al = U @ S @ Vt
+        s_al = np.trace(np.diag(D) @ S) / ((A - mA) ** 2).mean(0).sum()
+        t_al = mB - s_al * R_al @ mA
+        eps, _ = line_z(slam)
+        pts = np.concatenate([eps[:, :3], eps[:, 3:]])
+        z = (s_al * (R_al @ pts.T)).T[:, 2] + t_al[2]
+        r["gates"] = {"gated": gated, "width": c.cols, "ate_sim3_m": ate,
+                      "first_trajectory_frame": round(est[0][0] * 30),
+                      "lines_created": int(slam.next_line), "lines_valid": int(len(eps)),
+                      "line_endpoints_near_planes": near_planes(z, 0.5)}
+        line_stages(r, ("frontend.lines", "track.lines", "keyframe.lines"))
+        print(f"path {name}: {c.cols}x{c.rows}, Sim3-aligned ATE {ate:.6f} m, trajectory from "
+              f"frame {r['gates']['first_trajectory_frame']}; lines created "
+              f"{int(slam.next_line)}, valid {len(eps)}, endpoints near the planes "
+              f"{r['gates']['line_endpoints_near_planes']:.4f}; line stage medians "
+              f"{r['line_stage_median_ms']}{'' if gated else ' (reported, not gated)'}")
+        runs[name] = r
+    r = runs["mono_lines"]
+    gate("mono_lines", r["state"] == TrackerState.TRACKING.value, f"ended in state {r['state']}")
+    gate("mono_lines", r["gates"]["ate_sim3_m"] < 0.08,
+         f"Sim3 ATE {r['gates']['ate_sim3_m']} >= 0.08 m")
+    gate("mono_lines", r["gates"]["lines_created"] >= 3,
+         f"{r['gates']['lines_created']} lines created")
+    gate("mono_lines", r["gates"]["line_endpoints_near_planes"] > 0.6, "lines off the planes")
+
+    # ---- (c) stereo points + lines ------------------------------------------
+    baseline = 0.1
+    st_cam = dataclasses.replace(cam, setup=CameraSetup.STEREO, focal_x_baseline=cam.fx * baseline)
+    frames, poses = render(st_cam, LINE_FRAMES, 0.06, baseline=baseline, seed=42)
+    slam = system(dataclasses.replace(cfg, camera=st_cam), max_kf_interval=2,
+                  enable_loop_closing=False)
+    r = drive_path("stereo_lines", fm, recorder(), slam,
+                   lambda s, f: s.feed_stereo_frame(f[0], f[2], f[3]), frames)
+    ate = ate_of(traj_io, slam, poses, align_scale=False)
+    eps, z = line_z(slam)
+    r["gates"] = {"ate_m": ate, "lines_created": int(slam.next_line), "lines_valid": int(len(eps)),
+                  "line_endpoints_near_planes": near_planes(z, 0.5)}
+    line_stages(r, ("frontend.lines", "track.lines", "keyframe.lines"))
+    print(f"path stereo_lines: ATE {ate:.6f} m; lines created {int(slam.next_line)}, valid "
+          f"{len(eps)}, endpoints near the planes {r['gates']['line_endpoints_near_planes']:.4f}; "
+          f"line stage medians {r['line_stage_median_ms']}")
+    gate("stereo_lines", r["state"] == TrackerState.TRACKING.value, f"ended in state {r['state']}")
+    gate("stereo_lines", int(slam.next_line) >= 4 and len(eps) >= 4, f"{len(eps)} lines")
+    gate("stereo_lines", r["gates"]["line_endpoints_near_planes"] > 0.6, f"lines off-plane: {z}")
+    gate("stereo_lines", ate < 0.06, f"ATE {ate} >= 0.06 m")
+    gate("stereo_lines", r["landmarks"] > 200, f"{r['landmarks']} landmarks")
+    runs["stereo_lines"] = r
+    return runs
+
+
+def count_syncs(make_system, frames, feed, warm=4):
+    """Host synchronizations torch's sync debug mode reports over one fed
+    frame after ``warm`` frames (the frame's feed includes whatever
+    lagged decision and keyframe chain it triggers)."""
+    import warnings
+
+    slam = make_system()
+    slam.startup()
+    for f in frames[:warm]:
+        feed(slam, f)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            feed(slam, frames[warm])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    at = {}
+    for w in syncs:
+        k = f"{Path(str(w.filename)).name}:{w.lineno}"
+        at[k] = at.get(k, 0) + 1
+    print(f"sync count plp: {len(syncs)} host synchronizations over one fed frame; by line {at}")
+    slam.shutdown()
+    return {"total": len(syncs), "at": at}
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device (this script never runs on the CPU)")
@@ -1104,20 +1341,25 @@ def main():
         "loop_fuse", loop_args, time_in_child(["loop_fuse"])["loop_fuse"],
         runs["loop"]["site_launches"]["loop_fuse"], runs["loop"]["max_abs_err_by_site"]
         .get("loop_fuse", 0.0), "fuse"))
+
+    # ---- 12. points + lines + planes -------------------------------------
+    runs.update(plp_paths(fm, cam, cfg, N))
     for k in kernels:
         site = k["name"].split("@")[1]
         k["launches_by_path"] = {p: r["site_launches"][site] for p, r in runs.items()}
+
+    # ---- 13. host syncs of the batched linear algebra ----------------------
+    sync_check()
+
+    # ---- 14. result lines ------------------------------------------------
     paths = {p: {key: r[key] for key in ("frames", "tracked", "frames_per_s", "state",
                                          "keyframes", "landmarks", "relocalizations",
                                          "launches", "max_abs_err", "stage_median_ms",
-                                         "max_keyframes", "max_landmarks", "gates")}
+                                         "max_keyframes", "max_landmarks", "gates")
+                 + tuple(k for k in ("line_stage_median_ms", "profile", "syncs_per_frame")
+                         if k in r)}
              for p, r in runs.items()}
     print(json.dumps({"paths": paths}))
-
-    # ---- 12. host syncs of the batched linear algebra ----------------------
-    sync_check()
-
-    # ---- 13. result lines ------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,7 @@ keypoint i of keyframe k, or -1) is the covisibility structure: counts
 between keyframes are one indicator matmul away.
 
 Dtypes: float32 geometry, bool masks, int64 ids and levels (torch's index
-type), int32 descriptors holding the u32 bit patterns. The line and plane
-fields are allocated with their shapes so later slices can fill them.
+type), int32 descriptors holding the u32 bit patterns.
 
 Writers are functional like the JAX package's (``.at[].set``): each
 returns a new MapState whose touched fields are fresh tensors, so a state
@@ -250,7 +249,19 @@ def with_row(t, slot, value):
 
 def add_keyframe(state: MapState, slot, pose, timestamp, feats, lm_idx):
     """Write one keyframe into ``slot`` from the frame feature dict
-    (xy/xr/depth/level/angle/desc/bearing/valid padded to max_kps)."""
+    (xy/xr/depth/level/angle/desc/bearing/valid padded to max_kps; with
+    lines also seg/seg_desc/seg_valid and optionally seg_depth, and the
+    keyframe's segment-to-line row reset to -1)."""
+    if "seg" in feats:
+        seg_depth = feats.get("seg_depth")
+        state = state._replace(
+            kf_seg=with_row(state.kf_seg, slot, feats["seg"]),
+            kf_seg_depth=with_row(state.kf_seg_depth, slot,
+                                  0.0 if seg_depth is None else seg_depth),
+            kf_seg_desc=with_row(state.kf_seg_desc, slot, feats["seg_desc"]),
+            kf_seg_valid=with_row(state.kf_seg_valid, slot, feats["seg_valid"]),
+            kf_line_idx=with_row(state.kf_line_idx, slot, -1),
+        )
     return state._replace(
         kf_pose=with_row(state.kf_pose, slot, pose),
         kf_valid=with_row(state.kf_valid, slot, True),

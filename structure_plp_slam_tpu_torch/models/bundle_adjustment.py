@@ -14,7 +14,13 @@ damped GN with an outlier cull between phases). Per iteration:
   4. Schur complement S = Hcc - W Hll^-1 W^T, dense [6C, 6C]
   5. Cholesky solve of S, back-substitution of landmark updates.
 
-The joint point+line window (``LineWindow``) comes with ROADMAP A14.
+With a ``LineWindow`` the window is the joint point + line BA of
+local_bundle_adjuster_extended_line.cc:69-: 4-DoF orthonormal lines
+(optimize/g2o/line3d.h:57-140) observed as segments whose endpoint
+distances to the projected line are the residuals
+(reproj_edge_line3d_orthonormal.h:49-150). Their forward-mode Jacobians
+come from ``torch.func``; the line blocks are eliminated like the point
+blocks.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from structure_plp_slam_tpu_torch.camera import base as cam_base
-from structure_plp_slam_tpu_torch.ops import lie, robust
+from structure_plp_slam_tpu_torch.ops import lie, linalg, robust
+from structure_plp_slam_tpu_torch.ops import line_geometry as lg
 from structure_plp_slam_tpu_torch.ops.linalg import inv3x3
 from structure_plp_slam_tpu_torch.utils.types import rdiv
 
@@ -45,11 +52,26 @@ class BAProblem(NamedTuple):
     obs_valid: torch.Tensor     # [O] bool
 
 
+class LineWindow(NamedTuple):
+    """Line terms of the joint point + line window."""
+
+    ln_U: torch.Tensor        # [Ml, 3, 3]
+    ln_w: torch.Tensor        # [Ml, 2]
+    ln_valid: torch.Tensor    # [Ml] bool (>= 2 window observations)
+    lobs_cam: torch.Tensor    # [Ol] i64 local camera index
+    lobs_line: torch.Tensor   # [Ol] i64 local line index
+    lobs_seg: torch.Tensor    # [Ol, 4] detected segment endpoints
+    lobs_inv_sigma_sq: torch.Tensor  # [Ol]
+    lobs_valid: torch.Tensor  # [Ol] bool
+
+
 class BAResult(NamedTuple):
     cam_pose: torch.Tensor
     lm_pos: torch.Tensor
     obs_inlier: torch.Tensor    # [O] bool — post-solve chi2 classification
     chi2: torch.Tensor          # f32 — final total error over inliers
+    ln_U: torch.Tensor = None   # [Ml, 3, 3] with a LineWindow
+    ln_w: torch.Tensor = None   # [Ml, 2]
 
 
 def _safe_z(z):
@@ -77,11 +99,56 @@ def _segment_sum(ids, vals, n):
     return out.index_add_(0, ids, vals)
 
 
-def ba_solve(camera, prob: BAProblem, *, num_iters: int = 15,
+def inv4x4_sym(H):
+    """Batched symmetric 4x4 inverse by 3x3-block Schur partitioning."""
+    A, b, c = H[..., :3, :3], H[..., :3, 3], H[..., 3, 3]
+    Ai = inv3x3(A)
+    Aib = torch.einsum("...ij,...j->...i", Ai, b)
+    s = c - torch.einsum("...i,...i->...", b, Aib)
+    s_inv = 1.0 / torch.where(torch.abs(s) < 1e-12, torch.full_like(s, 1e-12), s)
+    TL = Ai + s_inv[..., None, None] * torch.einsum("...i,...j->...ij", Aib, Aib)
+    TR = -s_inv[..., None] * Aib
+    top = torch.cat([TL, TR[..., :, None]], dim=-1)
+    bot = torch.cat([TR, s_inv[..., None]], dim=-1)
+    return torch.cat([top, bot[..., None, :]], dim=-2)
+
+
+def _line_residuals(camera, U, w, R, t, seg, xi, dl):
+    """Endpoint-to-line residuals ``[Ol, 2]`` of line observations under
+    camera updates ``xi [Ol, 6]`` and line updates ``dl [Ol, 4]``."""
+    R2, t2 = lie.se3_update(R, t, xi)
+    U2, w2 = lg.orthonormal_update(U, w, dl)
+    l_img = lg.project_line(camera, lg.transform_line(lg.orthonormal_to_plucker(U2, w2), R2, t2))
+    return lg.endpoint_line_distances(l_img, seg[..., 0:2], seg[..., 2:4])
+
+
+def line_residuals_and_jacobians(camera, U, w, R, t, seg):
+    """(r [Ol, 2], d r / d camera [Ol, 2, 6], d r / d line [Ol, 2, 4]) at
+    the linearization point."""
+    n = seg.shape[0]
+    z6 = seg.new_zeros((n, 6))
+    z4 = seg.new_zeros((n, 4))
+    r, Jc = linalg.jacobian_fwd(lambda xi: _line_residuals(camera, U, w, R, t, seg, xi, z4), z6, 6)
+    _, Jl = linalg.jacobian_fwd(lambda dl: _line_residuals(camera, U, w, R, t, seg, z6, dl), z4, 4)
+    return r, Jc, Jl
+
+
+def _line_chi2(camera, lines, cam_pose, ln_U, ln_w):
+    U = ln_U[lines.lobs_line]
+    w = ln_w[lines.lobs_line]
+    R = cam_pose[lines.lobs_cam, :, :3]
+    t = cam_pose[lines.lobs_cam, :, 3]
+    r = _line_residuals(camera, U, w, R, t, lines.lobs_seg, lines.lobs_seg.new_zeros(
+        (U.shape[0], 6)), lines.lobs_seg.new_zeros((U.shape[0], 4)))
+    return torch.sum(r * r, -1) * lines.lobs_inv_sigma_sq
+
+
+def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: int = 15,
              cull_at_iters: tuple = (5,), damping: float = 1e-4) -> BAResult:
-    """Damped Gauss-Newton with Schur elimination on a BA window.
-    ``cull_at_iters``: iterations after which observations are chi2-gated
-    (the reference's two-phase structure)."""
+    """Damped Gauss-Newton with Schur elimination on a BA window, with
+    the line terms of ``lines`` when given. ``cull_at_iters``: iterations
+    after which observations are chi2-gated (the reference's two-phase
+    structure)."""
     cam_base.dispatch(camera)
     C = prob.cam_pose.shape[0]
     M = prob.lm_pos.shape[0]
@@ -98,6 +165,24 @@ def ba_solve(camera, prob: BAProblem, *, num_iters: int = 15,
 
     cam_pose, lm_pos = prob.cam_pose, prob.lm_pos
     obs_live = prob.obs_valid & prob.cam_valid[prob.obs_cam] & prob.lm_valid[prob.obs_lm]
+    if lines is not None:
+        Ml = lines.ln_U.shape[0]
+        eye4 = torch.eye(4, **f32)
+        lpair = lines.lobs_line * C + lines.lobs_cam
+        ln_U, ln_w = lines.ln_U, lines.ln_w
+        lobs_live = lines.lobs_valid & lines.ln_valid[lines.lobs_line]
+        # Pre-gate: an observation grossly inconsistent with the input
+        # geometry (e.g. across an uncorrected loop drift) never enters
+        # the solve. Scene-adaptive: 9x the median live chi2, at least 9x
+        # the chi2 threshold (the median is the lower middle value).
+        chi2_l0 = _line_chi2(camera, lines, cam_pose, ln_U, ln_w)
+        n_live = torch.sum(lobs_live)
+        chi_sorted = torch.sort(torch.where(lobs_live, chi2_l0,
+                                            torch.full_like(chi2_l0, float("inf")))).values
+        med = chi_sorted.gather(0, torch.clamp((n_live - 1) // 2, 0,
+                                               chi2_l0.shape[0] - 1).reshape(1))[0]
+        med = torch.where(torch.isfinite(med), med, zero)
+        lobs_live = lobs_live & (chi2_l0 <= torch.clamp(9.0 * med, min=9.0 * robust.CHI2_2D))
     for it in range(num_iters):
         pc, r_uv, r_xr = _project_residuals(camera, cam_pose, lm_pos, prob)
         chi2 = _obs_chi2(prob, r_uv, r_xr, has_stereo)
@@ -140,6 +225,22 @@ def ba_solve(camera, prob: BAProblem, *, num_iters: int = 15,
         Hll = _segment_sum(prob.obs_lm, Hll_o, M)
         bl = _segment_sum(prob.obs_lm, bl_o, M)
         W = _segment_sum(pair, Hcl_o, M * C).reshape(M, C, 6, 3)
+        if lines is not None:
+            r_l, Jc_l, Jl_l = line_residuals_and_jacobians(
+                camera, ln_U[lines.lobs_line], ln_w[lines.lobs_line],
+                cam_pose[lines.lobs_cam, :, :3], cam_pose[lines.lobs_cam, :, 3], lines.lobs_seg)
+            chi2_l = torch.sum(r_l * r_l, -1) * lines.lobs_inv_sigma_sq
+            w_lo = torch.where(
+                lobs_live,
+                robust.huber_weight(chi2_l, robust.CHI2_2D) * lines.lobs_inv_sigma_sq, zero)
+            Jc_lw = Jc_l * w_lo[:, None, None]
+            Jl_lw = Jl_l * w_lo[:, None, None]
+            Hcc = Hcc + _segment_sum(lines.lobs_cam, torch.einsum("ori,orj->oij", Jc_lw, Jc_l), C)
+            bc = bc + _segment_sum(lines.lobs_cam, -torch.einsum("ori,or->oi", Jc_lw, r_l), C)
+            Hln = _segment_sum(lines.lobs_line, torch.einsum("ori,orj->oij", Jl_lw, Jl_l), Ml)
+            bln = _segment_sum(lines.lobs_line, -torch.einsum("ori,or->oi", Jl_lw, r_l), Ml)
+            Wl = _segment_sum(lpair, torch.einsum("ori,orj->oij", Jc_lw, Jl_l),
+                              Ml * C).reshape(Ml, C, 6, 4)
 
         # --- Schur elimination ---------------------------------------------
         lam_l = damping * torch.clamp(
@@ -151,6 +252,14 @@ def ba_solve(camera, prob: BAProblem, *, num_iters: int = 15,
         eye_cc = torch.eye(C, **f32)[:, :, None, None]
         S = -S_red + eye_cc * Hcc[:, None]
         rhs = bc - torch.einsum("mcik,mk->ci", WHinv, bl)         # [C, 6]
+        if lines is not None:
+            # The 4-DoF line blocks are eliminated like the point blocks.
+            lam_ln = damping * torch.clamp(
+                torch.diagonal(Hln, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 4.0, min=1e-6)
+            Hln_inv = inv4x4_sym(Hln + (lam_ln + 1e-8) * eye4)
+            WlHinv = torch.einsum("mcij,mjk->mcik", Wl, Hln_inv)  # [Ml, C, 6, 4]
+            S = S - torch.einsum("mcik,mdjk->cdij", WlHinv, Wl)
+            rhs = rhs - torch.einsum("mcik,mk->ci", WlHinv, bln)
 
         # Fixed cameras: identity rows/cols (gauge + window borders).
         S = S * free_f[:, None, None, None] * free_f[None, :, None, None]
@@ -179,10 +288,22 @@ def ba_solve(camera, prob: BAProblem, *, num_iters: int = 15,
         R_new, t_new = lie.se3_update(cam_pose[:, :, :3], cam_pose[:, :, 3], dx_c)
         cam_pose = torch.where(free[:, None, None], lie.pack_pose(R_new, t_new), cam_pose)
         lm_pos = torch.where(prob.lm_valid[:, None], lm_pos + dx_l, lm_pos)
+        if lines is not None:
+            # Back-substitute lines: dl = Hln^-1 (bln - Wl^T dx_c). A line
+            # moves only while >= 2 live observations constrain it.
+            dx_ln = torch.einsum("mij,mj->mi", Hln_inv,
+                                 bln - torch.einsum("mcij,ci->mj", Wl, dx_c))
+            ln_cnt = _segment_sum(lines.lobs_line, lobs_live.to(torch.int64), Ml)
+            ok_ln = lines.ln_valid & (ln_cnt >= 2) & torch.isfinite(dx_ln).all(-1) & ok
+            dx_ln = torch.where(ok_ln[:, None], torch.clamp(dx_ln, -0.3, 0.3), zero)
+            ln_U, ln_w = lg.orthonormal_update(ln_U, ln_w, dx_ln)
 
         if it in cull_at_iters:
             _, r_uv2, r_xr2 = _project_residuals(camera, cam_pose, lm_pos, prob)
             obs_live = obs_live & (_obs_chi2(prob, r_uv2, r_xr2, has_stereo) <= delta_sq)
+            if lines is not None:
+                lobs_live = lobs_live & (_line_chi2(camera, lines, cam_pose, ln_U, ln_w)
+                                         <= robust.CHI2_2D)
 
     # Re-project rotations onto SO(3); fixed cameras keep their input pose.
     cam_pose = lie.pack_pose(lie.orthonormalize(cam_pose[:, :, :3]), cam_pose[:, :, 3])
@@ -190,4 +311,7 @@ def ba_solve(camera, prob: BAProblem, *, num_iters: int = 15,
     _, r_uv, r_xr = _project_residuals(camera, cam_pose, lm_pos, prob)
     chi2 = _obs_chi2(prob, r_uv, r_xr, has_stereo)
     inlier = obs_live & (chi2 <= delta_sq)
-    return BAResult(cam_pose, lm_pos, inlier, torch.sum(torch.where(inlier, chi2, zero)))
+    total = torch.sum(torch.where(inlier, chi2, zero))
+    if lines is not None:
+        return BAResult(cam_pose, lm_pos, inlier, total, ln_U, ln_w)
+    return BAResult(cam_pose, lm_pos, inlier, total)

@@ -10,16 +10,22 @@ stores per keyframe:
   desc [N,8] int32                       bearing [N,3]
   valid [N] bool                         response [N]
 
-Line features wait for ROADMAP A14.
+With ``with_lines`` each frame also gets up to ``max_lines`` line
+segments (``_lines``): seg [M,4], seg_desc [M,D], seg_valid [M] and
+seg_depth [M,2], the endpoint depths sampled from the depth map (RGB-D),
+searched on the rectified pair (stereo) or 0 (mono).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.ops import image as image_ops
+from structure_plp_slam_tpu_torch.ops import lines as line_ops
 from structure_plp_slam_tpu_torch.ops import matching
 from structure_plp_slam_tpu_torch.ops import orb as orb_ops
 from structure_plp_slam_tpu_torch.ops import stereo as stereo_ops
@@ -31,8 +37,16 @@ class Frontend:
     the output slot count (the MapState per-keyframe capacity)."""
 
     def __init__(self, camera, orb_params: orb_ops.OrbParams, pad_to: int,
-                 device=None):
+                 with_lines: bool = False, max_lines: int = 64, device=None):
         self.device = resolve_device(device)
+        self.with_lines = with_lines
+        self.max_lines = max_lines
+        # A StageTimer to time the line work as ``frontend.lines`` (the
+        # System sets its own).
+        self.timer = None
+        # Where the endpoint depths are sampled along each segment.
+        self._line_fracs = torch.tensor([0.05, 0.1, 0.15, 0.85, 0.9, 0.95],
+                                        dtype=torch.float32, device=self.device)
         self.camera = camera
         self.extractor = orb_ops.OrbExtractor(camera.rows, camera.cols, orb_params)
         if pad_to < self.extractor.capacity:
@@ -69,6 +83,8 @@ class Frontend:
         out["xr"] = torch.full((n,), -1.0, dtype=torch.float32, device=self.device)
         out["depth"] = torch.zeros((n,), dtype=torch.float32, device=self.device)
         out.pop("_xy_raw")
+        if self.with_lines:
+            self._lines(img_gray, out)
         return out
 
     def rgbd(self, img_gray, depth, mask=None):
@@ -88,12 +104,15 @@ class Frontend:
             has_depth, out["xy"][:, 0] - rdiv(cam.focal_x_baseline, safe_d), -1.0
         )
         out["depth"] = torch.where(has_depth, d, torch.zeros_like(d))
+        if self.with_lines:
+            self._lines(img_gray, out, depth_map=depth_map)
         return out
 
     def stereo(self, img_left, img_right, mask=None):
         """Rectified stereo pair: left features plus disparity-derived depth
         (reference frame.cc stereo ctor: ORB on both images, then
-        match::stereo). Line features wait for ROADMAP A14."""
+        match::stereo). Line endpoint depths come from a row SAD search on
+        the pair (the stereo line frame ctor, frame.h:87-164)."""
         out = self._base(img_left, self._eff_mask(mask))
         gray_l = image_ops.to_grayscale(img_left, device=self.device)
         gray_r = image_ops.to_grayscale(img_right, device=self.device)
@@ -107,7 +126,43 @@ class Frontend:
             focal_x_baseline=self.camera.focal_x_baseline,
         )
         out["xr"], out["depth"] = xr, depth  # -1 / 0 where unmatched
+        if self.with_lines:
+            self._lines(gray_l, out, gray_right=gray_r)
         return out
+
+    def _lines(self, img, out, depth_map=None, gray_right=None):
+        """Attach line-segment features to ``out`` (the line frame ctors,
+        frame.h:87-164): detection at two scales, band descriptors and
+        endpoint depths, each the median of three samples just inside the
+        segment's ends."""
+        with self.timer.stage("frontend.lines") if self.timer else contextlib.nullcontext():
+            self._lines_impl(img, out, depth_map, gray_right)
+
+    def _lines_impl(self, img, out, depth_map, gray_right):
+        gray = image_ops.to_grayscale(img, device=self.device)
+        seg, valid, _ = line_ops.detect_line_segments_multiscale(gray, max_lines=self.max_lines)
+        desc = line_ops.line_band_descriptors(gray, seg, valid)
+        fracs = self._line_fracs
+        xs = seg[None, :, 0] + fracs[:, None] * (seg[None, :, 2] - seg[None, :, 0])
+        ys = seg[None, :, 1] + fracs[:, None] * (seg[None, :, 3] - seg[None, :, 1])
+        if gray_right is not None:
+            d, ok = stereo_ops.depth_at_points(
+                gray, gray_right, torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1),
+                focal_x_baseline=self.camera.focal_x_baseline)
+            d = torch.where(ok, d, torch.zeros_like(d)).reshape(6, -1)
+        elif depth_map is not None:
+            dm = depth_map.to(torch.float32) * (1.0 / self.camera.depthmap_factor)
+            xi = torch.clamp(xs.to(torch.int64), 0, self.camera.cols - 1)
+            yi = torch.clamp(ys.to(torch.int64), 0, self.camera.rows - 1)
+            d = dm[yi, xi]
+        else:
+            d = None
+        if d is None:
+            seg_depth = torch.zeros((seg.shape[0], 2), dtype=torch.float32, device=self.device)
+        else:
+            seg_depth = torch.stack([torch.median(d[:3], dim=0).values,
+                                     torch.median(d[3:], dim=0).values], dim=1)
+        out.update(seg=seg, seg_desc=desc, seg_valid=valid, seg_depth=seg_depth)
 
     def _pad(self, t):
         n = t.shape[0]

@@ -17,7 +17,7 @@ import torch
 from structure_plp_slam_tpu_torch.camera import CameraModel
 from structure_plp_slam_tpu_torch.ops import matching, ransac
 from structure_plp_slam_tpu_torch.utils import prng
-from structure_plp_slam_tpu_torch.utils.types import rdiv
+from structure_plp_slam_tpu_torch.utils.types import nanmedian_mean, rdiv
 
 MIN_TRIANGULATED = 50  # points the chosen pose must triangulate to succeed
 
@@ -98,18 +98,6 @@ def try_initialize_mono(camera, feats1, feats2, key, *,
         used_homography=use_h,
         num_matches=torch.sum(has),
     )
-
-
-def nanmedian_mean(z, ok):
-    """Median of ``z`` over ``ok``, averaging the two middle values of an
-    even count as ``jnp.nanmedian`` does (``torch.nanmedian`` returns the
-    lower one). NaN when nothing is ok."""
-    n = torch.sum(ok)
-    s, _ = torch.sort(torch.where(ok, z, torch.full_like(z, float("inf"))))
-    lo = torch.clamp((n - 1) // 2, min=0)
-    hi = torch.clamp(n // 2, min=0)
-    med = s[lo] * 0.5 + s[hi] * 0.5
-    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 
 
 def scale_to_median_depth(points_w, point_ok, t_2w):

@@ -1,10 +1,11 @@
 """Local mapping: keyframe insertion, landmark creation, fuse, culling, BA.
 
-Port of the point path of structure_plp_slam_tpu/models/mapper.py
-(reference mapping_module.cc:87-285: store_new_keyframe,
-create_new_landmarks, update_new_keyframe/fuse, local_map_cleaner, local
-BA). Slot counters may be Python ints or device scalars; creators compact
-their valid outputs with a prefix sum into ``base_slot + cumsum`` slots and
+Port of structure_plp_slam_tpu/models/mapper.py (reference
+mapping_module.cc:87-285: store_new_keyframe, create_new_landmarks,
+update_new_keyframe/fuse, local_map_cleaner, local BA with the optional
+line window; ``map_scale`` for the plane and line thresholds). Slot
+counters may be Python ints or device scalars; creators compact their
+valid outputs with a prefix sum into ``base_slot + cumsum`` slots and
 return the number created as a tensor, so the keyframe chain runs without
 a host sync.
 
@@ -21,6 +22,7 @@ from structure_plp_slam_tpu_torch.data import map_state as ms
 from structure_plp_slam_tpu_torch.models import bundle_adjustment as ba
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.ops import lie, matching, triangulation
+from structure_plp_slam_tpu_torch.ops import line_geometry as lg
 from structure_plp_slam_tpu_torch.ops.fused_match import fused_match
 from structure_plp_slam_tpu_torch.ops.hamming import popcount_u32
 from structure_plp_slam_tpu_torch.utils.types import (
@@ -176,6 +178,23 @@ def triangulate_with_neighbors(camera, state: ms.MapState, slot, base_lm_slot, i
     if return_neighbors:
         return state, next_lm - base_lm_slot, nbs
     return state, next_lm - base_lm_slot
+
+
+def map_scale(state: ms.MapState, kf):
+    """Median camera-frame landmark distance of keyframe ``kf`` (the lower
+    middle value of an even count), the scale of the plane and line
+    thresholds (estimate_map_scale, planar_mapping_module.cc:130-183);
+    1.0 with fewer than 10 observations."""
+    L = state.lm_pos.shape[0]
+    lm = state.kf_lm_idx[kf]
+    ok = (lm >= 0) & state.kf_kp_valid[kf]
+    pose = state.kf_pose[kf]
+    pc = state.lm_pos[torch.clamp(lm, 0, L - 1)] @ pose[:, :3].T + pose[:, 3]
+    d = torch.linalg.norm(pc, dim=-1)
+    cnt = torch.sum(ok)
+    d_sorted = torch.sort(torch.where(ok, d, torch.full_like(d, float("inf")))).values
+    med = d_sorted.gather(0, torch.clamp((cnt - 1) // 2, 0, d.shape[0] - 1).reshape(1))[0]
+    return torch.where(cnt >= 10, torch.clamp(med, min=1e-3), torch.ones_like(med))
 
 
 # ---------------------------------------------------------------------------
@@ -403,13 +422,77 @@ def cull_keyframes(state: ms.MapState, protect_kf, ind=None):
 # ---------------------------------------------------------------------------
 
 
+def _line_window(state, cams, cam_ok, inv_sigma_sq_table, max_lines):
+    """The window's lines (the first ``max_lines`` valid lines the window
+    cameras observe) and their observations, as a ``ba.LineWindow``, and
+    the lines' global slots."""
+    L2 = state.ln_pluck.shape[0]
+    C, MLs = cams.shape[0], state.kf_line_idx.shape[1]
+    dev = state.device
+    ln_g = state.kf_line_idx[cams]                                     # [C, MLs]
+    ln_obs_ok = (ln_g >= 0) & state.kf_seg_valid[cams] & cam_ok[:, None]
+    lmask = torch.zeros((L2 + 1,), dtype=torch.bool, device=dev)
+    lmask[torch.where(ln_obs_ok, ln_g, L2)] = True
+    lmask = lmask[:L2] & state.ln_valid
+    l_idx = nonzero_static(lmask, max_lines, -1)
+    l_ok = l_idx >= 0
+    l_safe = torch.clamp(l_idx, 0, L2 - 1)
+    g2l = scatter_set(torch.full((L2 + 1,), -1, dtype=torch.int64, device=dev), l_safe,
+                      torch.arange(max_lines, device=dev), l_ok)
+    lobs_line = g2l[torch.clamp(ln_g, 0, L2)]
+    lobs_ok = (ln_obs_ok & (lobs_line >= 0)).reshape(-1)
+    lobs_line = torch.clamp(lobs_line, 0, max_lines - 1).reshape(-1)
+    counts = torch.zeros((max_lines,), dtype=torch.int64, device=dev).index_add_(
+        0, lobs_line, lobs_ok.to(torch.int64))
+    U0, w0 = lg.plucker_to_orthonormal(state.ln_pluck[l_safe])
+    lw = ba.LineWindow(
+        ln_U=U0, ln_w=w0, ln_valid=l_ok & (counts >= 2),
+        lobs_cam=torch.arange(C, device=dev)[:, None].expand(C, MLs).reshape(-1),
+        lobs_line=lobs_line,
+        lobs_seg=state.kf_seg[cams].reshape(-1, 4),
+        # Segments carry level-0 information (the detector's coarse pass
+        # maps back to level-0 pixels): the level-0 weight.
+        lobs_inv_sigma_sq=inv_sigma_sq_table[0].expand(C * MLs),
+        lobs_valid=lobs_ok,
+    )
+    return lw, l_safe
+
+
+def _write_back_lines(state, result, lw, l_safe):
+    """Write the window's jointly optimized lines back (|d| = 1, stored
+    endpoints projected onto the moved line), gated like
+    ``line_ba.refine_lines``. Returns (state, [L2] mask of the lines
+    written)."""
+    L2 = state.ln_pluck.shape[0]
+    pluck = lg.orthonormal_to_plucker(result.ln_U, result.ln_w)
+    pluck = pluck / torch.clamp(torch.linalg.norm(pluck[:, 3:], dim=-1, keepdim=True), min=1e-12)
+    eps_old = state.ln_endpoints[l_safe]
+    e1 = lg.closest_point_on_line(pluck, eps_old[:, :3])
+    e2 = lg.closest_point_on_line(pluck, eps_old[:, 3:])
+    span = torch.linalg.norm(eps_old[:, 3:] - eps_old[:, :3], dim=-1)
+    move = torch.maximum(torch.linalg.norm(e1 - eps_old[:, :3], dim=-1),
+                         torch.linalg.norm(e2 - eps_old[:, 3:], dim=-1))
+    upd = lw.ln_valid & torch.isfinite(pluck).all(-1) & (move <= span + 0.2)
+    state = state._replace(
+        ln_pluck=scatter_set(state.ln_pluck, l_safe, pluck, upd),
+        ln_endpoints=scatter_set(state.ln_endpoints, l_safe, torch.cat([e1, e2], dim=-1), upd),
+    )
+    updated = scatter_set(torch.zeros((L2,), dtype=torch.bool, device=state.device), l_safe,
+                          upd, upd)
+    return state, updated
+
+
 def local_ba(camera, state: ms.MapState, current_kf, inv_sigma_sq_table, *,
-             max_opt: int = 16, max_fix: int = 16, max_lms: int = 4096, ind=None,
+             max_opt: int = 16, max_fix: int = 16, max_lms: int = 4096,
+             with_lines: bool = False, max_lines: int = 128, ind=None,
              return_cams: bool = False):
     """Local bundle adjustment around ``current_kf``
     (local_bundle_adjuster.cc:73-135): optimized cameras = the top
     ``max_opt`` covisibles, landmarks = those they observe (first
     ``max_lms``), fixed cameras = other observers (first ``max_fix``).
+    ``with_lines``: the joint point + line window
+    (local_bundle_adjuster_extended_line.cc:69-) over the first
+    ``max_lines`` lines the window observes.
     Returns (state, chi2[, window cameras with -1 padding])."""
     K = state.kf_pose.shape[0]
     L = state.lm_pos.shape[0]
@@ -477,8 +560,11 @@ def local_ba(camera, state: ms.MapState, current_kf, inv_sigma_sq_table, *,
         obs_inv_sigma_sq=info.reshape(-1),
         obs_valid=obs_valid_c.reshape(-1),
     )
+    lw = l_safe = None
+    if with_lines:
+        lw, l_safe = _line_window(state, cams, cam_ok, inv_sigma_sq_table, max_lines)
     # 8 damped-GN iterations with the outlier cull after 4.
-    result = ba.ba_solve(camera, prob, num_iters=8, cull_at_iters=(4,))
+    result = ba.ba_solve(camera, prob, lw, num_iters=8, cull_at_iters=(4,))
 
     write_cam = (~cam_fixed) & cam_ok
     old_pose = state.kf_pose
@@ -495,13 +581,17 @@ def local_ba(camera, state: ms.MapState, current_kf, inv_sigma_sq_table, *,
         torch.ones_like(flat_idx, dtype=torch.bool),
     ).reshape(K, N)
     state = state._replace(kf_pose=new_pose, lm_pos=new_lm, kf_lm_idx=kf_lm)
+    ln_updated = torch.zeros_like(state.ln_valid)
+    if with_lines:
+        state, ln_updated = _write_back_lines(state, result, lw, l_safe)
 
-    # Lines and planes ride their reference keyframe's pose delta.
+    # Planes and the lines outside the window ride their reference
+    # keyframe's pose delta (window lines are BA variables, like points).
     ones = torch.ones((K,), dtype=torch.float32, device=dev)
     state = pg.correct_map_structures(
         state, old_pose[:, :, :3], old_pose[:, :, 3], ones,
         new_pose[:, :, :3], new_pose[:, :, 3], ones,
-        lm_mask=torch.zeros_like(state.lm_valid), ln_mask=state.ln_valid,
+        lm_mask=torch.zeros_like(state.lm_valid), ln_mask=state.ln_valid & ~ln_updated,
     )
     if return_cams:
         cams_out = torch.cat([torch.where(opt_ok, opt_kfs, -1),

@@ -4,7 +4,8 @@ Port of structure_plp_slam_tpu/ops/linalg.py: adjugate 3x3 inverses, a
 3x3-Schur 6x6 SPD inverse, the equilibrated 6x6 solve used inside the
 per-frame LM loop, and the recursive block SPD inverse + preconditioned
 CG solve. Same arithmetic, so the port's LM iterates follow the JAX
-package's.
+package's. ``jacobian_fwd``: forward-mode Jacobians of row-wise batched
+residuals (the line terms).
 """
 
 from __future__ import annotations
@@ -147,3 +148,13 @@ def spd_solve(S, rhs, base: int = 6, refine: int = 2):
         p = z + beta * p
         rz = rz_new
     return x[..., :n] * dinv
+
+
+def jacobian_fwd(fn, x0, n: int):
+    """Forward-mode Jacobian of a batched ``fn: [B, n] -> [B, r]`` at
+    ``x0 [B, n]``, where row b of the output depends on row b of the input
+    only: ``[B, r, n]``, one ``torch.func.jvp`` per tangent direction
+    (vmapped), every tensor at least 1-d (ROADMAP C21)."""
+    dirs = torch.eye(n, dtype=x0.dtype, device=x0.device)[:, None, :].expand(n, *x0.shape)
+    r, J = torch.func.vmap(lambda v: torch.func.jvp(fn, (x0,), (v,)))(dirs)
+    return r[0], J.permute(1, 2, 0)

@@ -3,8 +3,8 @@
 Port of structure_plp_slam_tpu/ops/stereo.py (reference match::stereo,
 stereo.cc:45-): the row bucketing is a mask on the dense distance matrix
 and the sub-pixel step a batched 3-point parabola over SAD samples at
-integer offsets around the match. ``depth_at_points`` (the stereo line
-frontend's endpoint depths) waits for ROADMAP A14.
+integer offsets around the match. ``depth_at_points`` gives the stereo
+line frontend its endpoint depths.
 """
 
 from __future__ import annotations
@@ -82,3 +82,43 @@ def match_stereo(img_left, img_right, kp_l_xy, kp_l_level, kp_l_bits, kp_l_valid
     depth = torch.where(ok, rdiv(focal_x_baseline, safe_disp), torch.zeros_like(disparity))
     x_right = torch.where(ok, x_right, torch.full_like(x_right, -1.0))
     return x_right, depth, ok
+
+
+def depth_at_points(img_left, img_right, pts_xy, *, focal_x_baseline: float,
+                    max_disp: int = 96, patch: int = 3):
+    """Depth at arbitrary left-image points by an exhaustive row SAD search
+    on the rectified pair (integer disparities 1..max_disp, 3-point
+    parabola sub-pixel step): the stereo line frontend's endpoint depths.
+    ``pts_xy``: f32 [P, 2]. Returns (depth [P], ok [P])."""
+    H, W = img_left.shape
+    dev = img_left.device
+    xs = pts_xy[:, 0].to(torch.int64)
+    ys = pts_xy[:, 1].to(torch.int64)
+    r = torch.arange(-patch, patch + 1, device=dev)
+    dy = r[:, None].expand(-1, r.shape[0]).reshape(-1)
+    dx = r[None, :].expand(r.shape[0], -1).reshape(-1)
+    yy = torch.clamp(ys[:, None] + dy[None, :], 0, H - 1)               # [P, K]
+    tmpl = img_left[yy, torch.clamp(xs[:, None] + dx[None, :], 0, W - 1)]
+    disps = torch.arange(1, max_disp + 1, device=dev)                    # [D]
+    xxr = torch.clamp(xs[:, None, None] - disps[None, :, None] + dx[None, None, :], 0, W - 1)
+    cand = img_right[yy[:, None, :].expand_as(xxr), xxr]                 # [P, D, K]
+    sad = torch.sum(torch.abs(cand - tmpl[:, None, :]), dim=-1)          # [P, D]
+
+    k = torch.argmin(sad, dim=1)  # first minimum
+    k_c = torch.clamp(k, 1, max_disp - 2)
+
+    def at(j):
+        return torch.gather(sad, 1, j[:, None])[:, 0]
+
+    s_m, s_0, s_p = at(k_c - 1), at(k_c), at(k_c + 1)
+    denom = torch.clamp(s_m - 2.0 * s_0 + s_p, min=1e-6)
+    delta = torch.clamp(0.5 * (s_m - s_p) / denom, -1.0, 1.0)
+    disparity = (k_c + 1).to(torch.float32) + delta
+    # Gates: disparity in range, the match not clipped at the border, the
+    # SAD minimum distinct from the row mean (texture present).
+    mean_sad = torch.mean(sad, dim=1)
+    ok = ((disparity > 0.5) & (disparity < float(max_disp)) & (xs - disps[k_c] >= patch)
+          & (s_0 < 0.8 * torch.clamp(mean_sad, min=1e-6)))
+    depth = torch.where(ok, rdiv(focal_x_baseline, torch.clamp(disparity, min=1e-6)),
+                        torch.zeros_like(disparity))
+    return depth, ok

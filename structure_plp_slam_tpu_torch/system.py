@@ -1,8 +1,8 @@
-"""System facade: the public API of the port (point landmarks).
+"""System facade: the public API of the port.
 
 Port of structure_plp_slam_tpu/system.py for monocular, stereo and RGB-D
-tracking, mapping and loop closing with point landmarks (reference
-PLPSLAM::system, src/PLPSLAM/system.cc): feed frames with
+tracking, mapping and loop closing with point, line and plane landmarks
+(reference PLPSLAM::system, src/PLPSLAM/system.cc): feed frames with
 ``feed_monocular_frame``, ``feed_stereo_frame`` or ``feed_RGBD_frame``,
 read trajectories back. Stereo and RGB-D start from depth; a monocular map
 starts from two views (``models/initializer.py``). Each frame
@@ -26,13 +26,23 @@ validation, then correct the map (Sim3 neighbourhood correction, pose
 graph, duplicate fusion through the fused matcher), and the global BA runs
 in chunks over later frames and is merged into the map as it is then.
 
-Random draws (mono init, relocalization, loop validation) follow the JAX
-System's key sequence from ``seed`` (``utils/prng``): one key per mono init
-attempt, per keyframe, per lost frame and per loop validation.
+Lines (``with_lines=True``): every frame detects line segments; the
+tracker associates them with the map's 3D lines and refines the pose
+jointly with the points when three match; keyframes create lines from
+endpoint depths, from co-located point landmarks and (stereo, RGB-D) by
+two-view triangulation, and local BA optimizes the window's lines with
+the points. Planes: a frame fed with ``seg_mask`` (an instance-id image)
+has its keyframe's landmarks bucketed by instance and plane-fitted; the
+planes are merged, refit and their landmarks snapped to them.
+
+Random draws (mono init, relocalization, loop validation, plane RANSAC)
+follow the JAX System's key sequence from ``seed`` (``utils/prng``): one
+key per mono init attempt, per keyframe, per lost frame, per loop
+validation, per init plane fit and, with lines, per fed frame.
 
 What the port does not have yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: lines, segmentation masks (planes),
-non-perspective cameras and the multi-device global BA.
+ROADMAP item that brings it: non-perspective cameras and the
+multi-device global BA.
 
 Usage:
     slam = System(config)   # device="cuda"
@@ -63,8 +73,9 @@ from structure_plp_slam_tpu_torch.data import map_database
 from structure_plp_slam_tpu_torch.data import map_state as ms
 from structure_plp_slam_tpu_torch.io import trajectory as traj_io
 from structure_plp_slam_tpu_torch.models import frontend as frontend_mod
-from structure_plp_slam_tpu_torch.models import global_ba, initializer, mapper, tracker
+from structure_plp_slam_tpu_torch.models import global_ba, initializer, line_ba, line_mapper
 from structure_plp_slam_tpu_torch.models import loop_closer as loop_mod
+from structure_plp_slam_tpu_torch.models import mapper, planar_mapper, tracker
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.models.relocalizer import Relocalizer
 from structure_plp_slam_tpu_torch.ops import lie
@@ -73,15 +84,6 @@ from structure_plp_slam_tpu_torch.utils import prng
 from structure_plp_slam_tpu_torch.utils.types import HostCopy, resolve_device, round_up
 
 _log = logging.getLogger("plpslam.torch.system")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
-def _no_seg_mask(seg_mask):
-    if seg_mask is not None:
-        raise _not_ported("segmentation masks (planar mapping)", "A13")
 
 
 class StageTimer:
@@ -165,9 +167,10 @@ class _TrackCarry(NamedTuple):
 
 
 def _track_step(camera, state, feats, carry: _TrackCarry, inv_sigma_sq, obs_ind,
-                min_obs, next_lm, *, num_levels, scale_factor):
+                min_obs, next_lm, *, num_levels, scale_factor, with_lines=False, timer=None):
     """The per-frame device pipeline: motion-model prediction, tracking,
-    landmark statistics, motion-model update, decision packing."""
+    landmark statistics, line tracking, motion-model update, decision
+    packing. Returns (state, res, carry, packed, seg_lines or None)."""
     R_pred = carry.Rv @ carry.R
     t_pred = carry.Rv @ carry.t + carry.tv
     res = tracker.track_frame(
@@ -178,12 +181,25 @@ def _track_step(camera, state, feats, carry: _TrackCarry, inv_sigma_sq, obs_ind,
         lm_n_vis=state.lm_n_vis + res.lm_vis.to(torch.int64),
         lm_n_fnd=state.lm_n_fnd + res.lm_fnd.to(torch.int64),
     )
+    seg_lines = None
+    if with_lines:
+        # Associate the map lines and refine the pose jointly, gated on the
+        # device on >= 3 line matches (pose_optimizer_extended_line).
+        L = state.lm_pos.shape[0]
+        info = inv_sigma_sq[torch.clamp(feats["level"], 0, inv_sigma_sq.shape[0] - 1)]
+        with timer.stage("track.lines") if timer else contextlib.nullcontext():
+            state, R_l, t_l, seg_lines = line_mapper.track_lines(
+                camera, state, feats["seg"], feats["seg_desc"], feats["seg_valid"],
+                state.lm_pos[torch.clamp(res.kp_lm, 0, L - 1)], feats["xy"], info,
+                (res.kp_lm >= 0) & feats["valid"], res.R, res.t,
+            )
+        res = res._replace(R=R_l, t=t_l)
     Rv2 = res.R @ carry.R.T
     carry2 = _TrackCarry(
         R=res.R, t=res.t, Rv=Rv2, tv=res.t - Rv2 @ carry.t,
         last_kp_lm=res.kp_lm, ref_kf=res.ref_kf,
     )
-    return state, res, carry2, _pack_decision(state, res, next_lm)
+    return state, res, carry2, _pack_decision(state, res, next_lm), seg_lines
 
 
 def _clear_failed_init(state):
@@ -268,15 +284,20 @@ def _loopfix_adopt(state, R_opt, t_opt, s_opt, snap_next_kf: int):
 
 def _kf_chain(camera, st, slot, pose, ts, feats, kp_lm, next_lm, inv_sigma_sq, ind0,
               bow, *, do_ba, do_cull_kf, stats_full, do_detect, num_tri_neighbors,
-              scale_factor, num_levels):
+              scale_factor, num_levels, timer, with_lines=False, seg_line_idx=None,
+              two_view_lines=False, next_line=0, seg_mask=None, planar=None,
+              use_graph_cut=True, key=None, next_plane=0):
     """The keyframe processing chain (reference mapping thread,
     mapping_module.cc:193-285, plus the loop detector's scoring of
-    global_optimization_module.cc) with lines and segmentation off:
-    insert, cull landmarks, triangulate, fuse, local BA, cull keyframes,
-    statistics and, with ``do_detect``, the loop-detection arrays. The
-    observation indicator ``ind0`` is patched row by row between stages
-    (only fuse's global remap rebuilds it). Returns (state, next_lm,
-    indicator, packed detection [K, 3] or None, covisibility or None)."""
+    global_optimization_module.cc): insert, cull landmarks, triangulate,
+    lines (the frame's line associations, lines from endpoint depths and
+    from point landmarks, two-view lines, line culling), fuse, planes from
+    ``seg_mask`` (detect, merge, refine, snap), line refresh and local BA,
+    cull keyframes, statistics and, with ``do_detect``, the loop-detection
+    arrays. The observation indicator ``ind0`` is patched row by row
+    between stages (only fuse's global remap rebuilds it). Returns
+    (state, next_lm, next_line, next_plane, indicator, packed detection
+    [K, 3] or None, covisibility or None)."""
     K = st.kf_pose.shape[0]
     dev = st.device
     st, created = mapper.insert_keyframe(camera, st, slot, pose, ts, feats, kp_lm, next_lm)
@@ -290,17 +311,43 @@ def _kf_chain(camera, st, slot, pose, ts, feats, kp_lm, next_lm, inv_sigma_sq, i
         return_neighbors=True,
     )
     next_lm = next_lm + n_tri
+    if with_lines:
+        with timer.stage("keyframe.lines"):
+            if seg_line_idx is not None:
+                st = st._replace(kf_line_idx=ms.with_row(st.kf_line_idx, slot, seg_line_idx))
+            st, n = line_mapper.lines_from_depth(camera, st, slot, next_line)
+            next_line = next_line + n
+            st, n = line_mapper.lines_from_points(camera, st, slot, next_line)
+            next_line = next_line + n
+            if two_view_lines:
+                st, n = line_mapper.triangulate_lines_with_neighbors(camera, st, slot, next_line)
+                next_line = next_line + n
+            st, _ = line_mapper.cull_lines(st, slot)
     ind = ms.indicator_update_rows(ind, st, torch.cat([slot_t, tri_nbs]))
     kf_mask = torch.zeros((K,), dtype=torch.bool, device=dev)
     kf_mask[slot] = True
     lm_local = ms.local_landmark_mask(st, kf_mask, ind)
     st, _ = mapper.fuse_into_keyframe(camera, st, slot, lm_local, ind=ind)
     ind = ms.observation_indicator(st)
+    if seg_mask is not None:
+        with timer.stage("keyframe.planes"):
+            labels = planar_mapper.label_keypoints(seg_mask, feats["xy"], feats["valid"],
+                                                   check_3x3=planar.check_3x3_window)
+            scale = mapper.map_scale(st, slot)
+            st, n_pl = planar_mapper.detect_planes(
+                st, slot, labels, next_plane, key, scale, max_instances=planar.max_instances,
+                coherent=use_graph_cut, params=planar)
+            next_plane = next_plane + n_pl
+            st, _ = planar_mapper.merge_planes(st, scale, params=planar)
+            st = planar_mapper.refine_planes(st, scale, params=planar)
+            st = planar_mapper.snap_points_to_planes(st, scale, params=planar)
 
     ba_cams = None
     if do_ba:
-        st, _, ba_cams = mapper.local_ba(camera, st, slot, inv_sigma_sq, ind=ind,
-                                         return_cams=True)
+        if with_lines:
+            st = line_mapper.refresh_lines(camera, st)
+        st, _, ba_cams = mapper.local_ba(camera, st, slot, inv_sigma_sq, with_lines=with_lines,
+                                         ind=ind, return_cams=True)
         ind = ms.indicator_update_rows(ind, st, ba_cams)
     if do_cull_kf:
         st, _ = mapper.cull_keyframes(st, slot, ind=ind)
@@ -313,10 +360,10 @@ def _kf_chain(camera, st, slot, pose, ts, feats, kp_lm, next_lm, inv_sigma_sq, i
     else:
         st = mapper.update_landmark_normals(st, ind)
     if not do_detect:
-        return st, next_lm, ind, None, None
+        return st, next_lm, next_line, next_plane, ind, None, None
     cov = ms.covisibility_matrix(st, ind)
     packed = loop_mod._pack_detect_arrays(cov, slot, bow.scores_for_slot(st, slot), st.kf_valid)
-    return st, next_lm, ind, packed, cov
+    return st, next_lm, next_line, next_plane, ind, packed, cov
 
 
 @dataclasses.dataclass
@@ -329,9 +376,15 @@ class _PendingFrame:
     ts: float
     res: Any
     frames_since_kf: int
+    seg_mask: Optional[torch.Tensor] = None
+    seg_line_idx: Optional[torch.Tensor] = None
 
 
 class System:
+    # Lines off unless __init__ turns them on (the loop and global-BA steps
+    # read it, also on a System built without __init__).
+    with_lines = False
+
     def __init__(
         self,
         config: Config,
@@ -351,8 +404,6 @@ class System:
         async_loop_ba: bool = True,
         device=None,
     ):
-        if with_lines:
-            raise _not_ported("line tracking", "A14")
         cam_base.dispatch(config.camera)  # non-perspective models raise (A15)
         self.device = resolve_device(device)
         self.timer = StageTimer(synced=verbose_timing, device=self.device)
@@ -371,6 +422,12 @@ class System:
         # The spatially coherent consensus for the mono-init H/E races
         # (GC-RANSAC, initialize/perspective.cc:70-85), by its own YAML key.
         self.init_graph_cut = bool(config.raw.get("Initializer.use_graph_cut", False))
+        # Lines may also be switched on by the reference's YAML key
+        # (Threshold.use_line_tracking, system.cc:550-556); the planar
+        # thresholds come from planar_mapping_parameters.yaml's keys.
+        self.with_lines = bool(with_lines or config.raw.get("Threshold.use_line_tracking", False))
+        self.planar = planar_mapper.PlanarParams.from_raw(config.raw)
+        self.use_graph_cut = self.planar.use_graph_cut
         self.key = prng.PRNGKey(seed)
         # Loop closing and relocalization share the retrieval index.
         self.enable_loop_closing = enable_loop_closing
@@ -389,7 +446,8 @@ class System:
             8,
         )
         self.frontend = frontend_mod.Frontend(config.camera, config.orb, pad_to=cap,
-                                              device=self.device)
+                                              with_lines=self.with_lines, device=self.device)
+        self.frontend.timer = self.timer
         self.max_keyframes = max_keyframes
         self.max_landmarks = max_landmarks
         self.num_tri_neighbors = num_triangulation_neighbors
@@ -629,6 +687,11 @@ class System:
             P_old_ref = st.kf_pose[self.ref_kf]
             self._state = _gba_adopt_step(st, solved_pose, solved_lm, p["snap_kf_valid"],
                                           p["snap_lm_valid"], p["snap_next_kf"])
+            if self.with_lines:
+                # Lines rode their reference keyframes' deltas through the
+                # solve; a full-map multi-view polish refits them against
+                # the merged poses (loop_bundle_adjuster.cc:110-145).
+                self._state = line_ba.refine_lines(self.camera, self._state, num_iters=12)
             self.pose = _rebase_pose(*self.pose, P_old_ref, self._state.kf_pose[self.ref_kf])
             self._reset_velocity()
             self._ind_cache = None
@@ -669,6 +732,8 @@ class System:
         self._tracking_state = TrackerState.NOT_INITIALIZED
         self.next_kf = 0
         self.next_lm = 0
+        self.next_line = 0
+        self.next_plane = 0
         self.frames_since_kf = 0
         eye = torch.eye(3, dtype=torch.float32, device=self.device)
         zero = torch.zeros((3,), dtype=torch.float32, device=self.device)
@@ -685,45 +750,59 @@ class System:
         # The monocular init's first frame (kept until two views succeed).
         self._init_feats = None
         self._init_ts = None
+        self._init_seg_mask = None
+        self._cur_seg_mask = None
 
     # ------------------------------------------------------------------
     # Frame feeding (reference: system::feed_*_frame).
     # ------------------------------------------------------------------
     def feed_monocular_frame(self, img, timestamp: float, mask=None, seg_mask=None):
         """Track one monocular frame (see :meth:`feed_RGBD_frame`)."""
-        _no_seg_mask(seg_mask)
+        self._frame_key()
         with self.timer.stage("frontend"):
             feats = self.frontend.mono(img, mask=mask)
-        return self._track(feats, timestamp)
+        return self._track(feats, timestamp, seg_mask)
 
     def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None,
                           seg_mask=None):
         """Track one rectified stereo pair (see :meth:`feed_RGBD_frame`);
         ``ops/rectify.StereoRectifier`` rectifies a raw pair first."""
-        _no_seg_mask(seg_mask)
+        self._frame_key()
         with self.timer.stage("frontend"):
             feats = self.frontend.stereo(img_left, img_right, mask=mask)
-        return self._track(feats, timestamp)
+        return self._track(feats, timestamp, seg_mask)
 
     def feed_RGBD_frame(self, img, depthmap, timestamp: float, mask=None,
                         seg_mask=None):
         """Track one RGB-D frame; returns the tracked world->camera pose
         ``[3, 4]`` (a device tensor), or None before initialization and,
         with ``track_lag=0``, for a lost frame. ``mask``: optional [H, W]
-        extraction mask, 0 = ignore."""
-        _no_seg_mask(seg_mask)
+        extraction mask, 0 = ignore. ``seg_mask``: optional [H, W]
+        instance-id image (0 = background; the reference's *_with_SegMask
+        feeds), whose keyframes get plane landmarks."""
+        self._frame_key()
         with self.timer.stage("frontend"):
             feats = self.frontend.rgbd(img, depthmap, mask=mask)
-        return self._track(feats, timestamp)
+        return self._track(feats, timestamp, seg_mask)
 
     def _split_key(self):
         """The next key of the JAX System's sequence (``_split_key``)."""
         self.key, k = prng.split(self.key)
         return k
 
-    def _track(self, feats, ts: float):
+    def _frame_key(self):
+        """With lines, the JAX System splits a key for each fed frame's line
+        detection (which does not use it); the port splits it too, so the
+        later draws stay in step."""
+        if self.with_lines:
+            self._split_key()
+
+    def _track(self, feats, ts: float, seg_mask=None):
         if not self._running:
             return None
+        self._cur_seg_mask = (None if seg_mask is None else
+                              torch.as_tensor(np.asarray(seg_mask), device=self.device)
+                              .to(torch.int64))
         self.num_frames += 1
         if self._tracking_state is TrackerState.NOT_INITIALIZED:
             if not self._initialize(feats, ts):
@@ -738,10 +817,11 @@ class System:
                             ref_kf=self._ref_kf_dev)
         params = self.frontend.extractor.params
         with self.timer.stage("track"):
-            self._state, res, carry2, packed = _track_step(
+            self._state, res, carry2, packed, seg_lines = _track_step(
                 self.camera, self._state, feats, carry, self.frontend.inv_sigma_sq,
                 self._obs_indicator(), min_obs, self.next_lm,
                 num_levels=params.num_levels, scale_factor=params.scale_factor,
+                with_lines=self.with_lines, timer=self.timer,
             )
         self.num_track_steps += 1
         self.pose = (carry2.R, carry2.t)
@@ -753,7 +833,8 @@ class System:
         # Defer the host-side decisions: the packed vector's copy to the
         # host starts now and is read ``track_lag`` frames later.
         entry = _PendingFrame(packed=HostCopy(packed), feats=feats, ts=ts, res=res,
-                              frames_since_kf=self.frames_since_kf)
+                              frames_since_kf=self.frames_since_kf,
+                              seg_mask=self._cur_seg_mask, seg_line_idx=seg_lines)
         self._pending.append(entry)
         # One phase of a loop fix and one step of a deferred global BA in
         # flight ride along with each frame.
@@ -800,6 +881,15 @@ class System:
                 self._grow(grow_kf=True)
             if next_lm_host >= self.max_landmarks - 2 * self.frontend.pad_to:
                 self._grow(grow_lm=True)
+            # Line and plane counters live on the device: read every 8
+            # keyframes, as the JAX System does.
+            if (self.with_lines or entry.seg_mask is not None) and self.next_kf % 8 == 7:
+                n_ln, n_pl = int(self.next_line), int(self.next_plane)
+                if self.with_lines and n_ln >= (self._state.ln_pluck.shape[0]
+                                                - 2 * self.frontend.max_lines):
+                    self._grow(grow_ln=True)
+                if n_pl >= self._state.pl_coef.shape[0] - 8:
+                    self._grow(grow_pl=True)
 
         # Keyframe decision (keyframe_inserter.cc:54-114): condition B
         # (enough matches, and the tracked share of the reference's
@@ -908,6 +998,9 @@ class System:
         self._tracking_state = TrackerState.TRACKING
         self.frames_since_kf = 0
         self._init_frame_count = self.num_frames
+        # Initial lines (from the depth map) and planes on keyframe 0
+        # (initializer.cc:322-333, initialize_map_with_plane).
+        self._init_structures(0, self._cur_seg_mask, feats)
         self._ind_cache = None
         return True
 
@@ -919,6 +1012,7 @@ class System:
         if self._init_feats is None:
             if int(feats["valid"].sum()) >= 100:
                 self._init_feats, self._init_ts = feats, ts
+                self._init_seg_mask = self._cur_seg_mask
             return False
         res = initializer.try_initialize_mono(
             self.camera, self._init_feats, feats, self._split_key(),
@@ -930,6 +1024,7 @@ class System:
             # this frame only when the matches ran out.
             if int(res.num_matches) < 50 and int(feats["valid"].sum()) >= 100:
                 self._init_feats, self._init_ts = feats, ts
+                self._init_seg_mask = self._cur_seg_mask
             return False
 
         pts, t2, _ = initializer.scale_to_median_depth(res.points_w, res.point_ok, res.t_2w)
@@ -967,10 +1062,43 @@ class System:
         self._ref_kf_dev = 1
         self._tracking_state = TrackerState.TRACKING
         self.frames_since_kf = 0
+        # Initial lines (from the fresh point map) and planes on both init
+        # keyframes (initializer.cc:299-302, :322-333).
+        self._init_structures(0, self._init_seg_mask, f1)
+        self._init_structures(1, self._cur_seg_mask, feats)
         self._init_feats = None
+        self._init_seg_mask = None
         self._init_frame_count = self.num_frames
         self._ind_cache = None
         return True
+
+    def _init_structures(self, slot: int, seg_mask, feats):
+        """Initial line and plane landmarks on an init keyframe: lines from
+        the depth map (stereo, RGB-D) and from the point map; planes from
+        ``seg_mask``, with relaxed gates on two-view monocular clouds, whose
+        triangulation noise is an order above a depth sensor's
+        (``planar_mapper.detect_planes``)."""
+        st = self._state
+        if self.with_lines and "seg" in feats:
+            next_line = self.next_line
+            if self.camera.setup is not CameraSetup.MONOCULAR:
+                st, n = line_mapper.lines_from_depth(self.camera, st, slot, next_line)
+                next_line = next_line + n
+            st, n = line_mapper.lines_from_points(self.camera, st, slot, next_line)
+            self.next_line = next_line + n
+        if seg_mask is not None:
+            labels = planar_mapper.label_keypoints(seg_mask, feats["xy"], feats["valid"],
+                                                   check_3x3=self.planar.check_3x3_window)
+            scale = mapper.map_scale(st, slot)
+            mono = self.camera.setup is CameraSetup.MONOCULAR
+            st, n_pl = planar_mapper.detect_planes(
+                st, slot, labels, self.next_plane, self._split_key(), scale,
+                max_instances=self.planar.max_instances, coherent=self.use_graph_cut,
+                params=self.planar, thr_mult=5.0 if mono else 1.0,
+                ratio_override=0.45 if mono else None,
+            )
+            self.next_plane = self.next_plane + n_pl
+        self._state = st
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, entry: _PendingFrame):
@@ -988,11 +1116,9 @@ class System:
         do_detect = (self.enable_loop_closing and self.next_kf + 1 >= 8
                      and slot - lc.last_loop_kf >= loop_mod.MIN_GAP
                      and self._pending_loop is None)
-        # The JAX System draws the chain's key here (for planes and lines);
-        # the port draws it too, so later draws stay in step.
-        self._split_key()
+        key = self._split_key()  # the chain's plane RANSAC draws
         with self.timer.stage("keyframe.chain"):
-            st, next_lm, ind, packed, cov = _kf_chain(
+            st, next_lm, next_line, next_plane, ind, packed, cov = _kf_chain(
                 self.camera, self._state, slot, pose, entry.ts, entry.feats, res.kp_lm,
                 self.next_lm, self.frontend.inv_sigma_sq, self._obs_indicator(), lc.bow,
                 do_ba=self.next_kf + 1 >= 3,
@@ -1002,11 +1128,21 @@ class System:
                 num_tri_neighbors=self.num_tri_neighbors,
                 scale_factor=params.scale_factor,
                 num_levels=params.num_levels,
+                timer=self.timer,
+                with_lines=self.with_lines,
+                seg_line_idx=entry.seg_line_idx,
+                two_view_lines=(self.camera.setup is not CameraSetup.MONOCULAR
+                                and self.next_kf + 1 >= 2),
+                next_line=self.next_line,
+                seg_mask=entry.seg_mask, planar=self.planar,
+                use_graph_cut=self.use_graph_cut, key=key, next_plane=self.next_plane,
             )
         self.next_kf += 1
         self.frames_since_kf = 0
         self._state = st
         self.next_lm = next_lm
+        self.next_line = next_line
+        self.next_plane = next_plane
         self.last_kp_lm = st.kf_lm_idx[slot]
         self.ref_kf = slot
         self._ref_kf_dev = slot
@@ -1088,6 +1224,8 @@ class System:
             "frames": self.num_frames,
             "keyframes": self.num_keyframes,
             "landmarks": self.num_landmarks,
+            "lines": int(self._state.ln_valid.sum()),
+            "planes": int(self._state.pl_valid.sum()),
             "loops_closed": self.loop_closer.num_loops_closed,
             "relocalizations": self.num_relocalizations,
             "tracking_state": self._tracking_state.value,

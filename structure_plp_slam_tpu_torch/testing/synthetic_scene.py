@@ -22,13 +22,24 @@ FG_X = (-1.1, 1.1)
 FG_Y = (-0.9, 0.9)
 
 
-def make_texture(rng, size=768):
+def make_texture(rng, size=768, grid: bool = False):
+    """A blurred noise texture with random flat squares; ``grid`` adds
+    dark lines of irregular spacing, thickness and intensity (real 3D line
+    structure on the planes, individually distinguishable)."""
     tex = rng.uniform(0, 255, size=(size, size)).astype(np.float32)
     tex = image_ops.gaussian_blur(torch.from_numpy(tex), 7, 1.5).numpy()
     for _ in range(int(size * 0.6)):
         cy, cx = rng.integers(10, size - 20, 2)
         s = rng.integers(4, 14)
         tex[cy : cy + s, cx : cx + s] = rng.uniform(0, 255)
+    if grid:
+        g = np.random.default_rng(7)
+        pos = np.cumsum(g.integers(70, 190, size=12))
+        for i, p in enumerate(pos[pos < size - 8]):
+            w = 3 + (i % 3)
+            tex[p : p + w, :] = 5.0 + 12.0 * (i % 4)
+            q = int(pos[::-1][i % len(pos)] * 0.83) % (size - 8)
+            tex[:, q : q + w] = 5.0 + 12.0 * ((i + 2) % 4)
     return tex
 
 
@@ -85,10 +96,10 @@ def trajectory(num_frames, step=0.06, rot=0.004):
     return poses
 
 
-def make_sequence(rng, camera, num_frames=20, step=0.06):
+def make_sequence(rng, camera, num_frames=20, step=0.06, grid: bool = False):
     """``(frames, poses)``: frames are (image, depth, timestamp) at 30 fps,
     poses the ground-truth world->camera (R, t)."""
-    tex = make_texture(rng)
+    tex = make_texture(rng, grid=grid)
     poses = trajectory(num_frames, step=step)
     frames = []
     for i, (R, t) in enumerate(poses):

@@ -84,6 +84,19 @@ def normalize(x, dim=-1, eps=1e-12):
     return x / safe_norm(x, dim=dim, eps=eps, keepdim=True)
 
 
+def nanmedian_mean(z, ok):
+    """Median of ``z`` over ``ok``, averaging the two middle values of an
+    even count as ``jnp.nanmedian`` does (``torch.nanmedian`` returns the
+    lower one). NaN when nothing is ok."""
+    n = torch.sum(ok)
+    s, _ = torch.sort(torch.where(ok, z, torch.full_like(z, float("inf"))))
+    # Gathers, not 0-d tensor indices (which wait for the card).
+    lohi = s.gather(0, torch.stack([torch.clamp((n - 1) // 2, min=0),
+                                    torch.clamp(n // 2, min=0)]))
+    med = lohi[0] * 0.5 + lohi[1] * 0.5
+    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
+
+
 def nonzero_static(mask, size: int, fill_value: int):
     """``jnp.nonzero(mask, size=size, fill_value=fill)[0]`` for a 1-D mask:
     the first ``size`` True positions in order, padded with ``fill``."""

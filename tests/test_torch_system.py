@@ -147,15 +147,30 @@ def test_system_default_device_needs_card(monkeypatch):
         System(_cfg(), **SIZES)
 
 
+PORTED_ITEMS = ("A14",)
+
+
 @pytest.mark.parametrize("kwargs,camera,item", [
     (dict(with_lines=True), TCAM, "A14"),
     ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.FISHEYE, **_KW), "A15"),
     ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.EQUIRECTANGULAR, **_KW), "A15"),
 ])
 def test_unported_options_raise(kwargs, camera, item):
+    """Options the port has not yet raise, naming their ROADMAP item.
+    ``with_lines`` (A14) raised until the slice that ported it: now it
+    builds a line frontend and its first RGB-D frame creates 3D lines."""
     args = {**SIZES, **kwargs, "device": "cpu"}
-    with pytest.raises(NotImplementedError, match=item):
-        System(_cfg(camera), **args)
+    if item not in PORTED_ITEMS:
+        with pytest.raises(NotImplementedError, match=item):
+            System(_cfg(camera), **args)
+        return
+    slam = System(_cfg(camera), **args)
+    assert slam.frontend.with_lines
+    slam.startup()
+    img, depth, ts = _frames()[0]
+    slam.feed_RGBD_frame(img, depth, ts)
+    assert slam.tracking_state is TrackerState.TRACKING
+    assert slam.metrics()["lines"] >= 1
 
 
 def test_loop_closing_system_runs():
@@ -184,19 +199,26 @@ def test_mono_and_stereo_construct(setup):
     assert slam.tracking_state is TrackerState.NOT_INITIALIZED
 
 
-# Segmentation masks (planes) still raise on every feed.
-@pytest.mark.parametrize("setup,feed", [
-    (CameraSetup.MONOCULAR, lambda s, f, m: s.feed_monocular_frame(f[0], f[2], seg_mask=m)),
-    (CameraSetup.STEREO, lambda s, f, m: s.feed_stereo_frame(f[0], f[0], f[2], seg_mask=m)),
-    (CameraSetup.RGBD, lambda s, f, m: s.feed_RGBD_frame(f[0], f[1], f[2], seg_mask=m)),
+# Segmentation masks (planes, A13) raised on every feed until the slice
+# that ported them: each feed now takes one and plane-fits the keyframes
+# it initializes (a monocular map starts from two views: its first frame
+# is kept, and the one frame fed here creates nothing yet).
+@pytest.mark.parametrize("setup,feed,planes", [
+    (CameraSetup.MONOCULAR, lambda s, f, m: s.feed_monocular_frame(f[0], f[2], seg_mask=m), 0),
+    (CameraSetup.STEREO, lambda s, f, m: s.feed_stereo_frame(f[0], f[0], f[2], seg_mask=m), 0),
+    (CameraSetup.RGBD, lambda s, f, m: s.feed_RGBD_frame(f[0], f[1], f[2], seg_mask=m), 1),
 ], ids=["monocular", "stereo", "seg_mask"])
-def test_unported_feeds_raise(setup, feed):
+def test_unported_feeds_raise(setup, feed, planes):
     camera = Camera(setup=setup, model=CameraModel.PERSPECTIVE, **_KW)
     slam = System(_cfg(camera), device="cpu", **SIZES)
     slam.startup()
     frame = _frames()[0]
-    with pytest.raises(NotImplementedError, match="A13"):
-        feed(slam, frame, np.ones_like(frame[1]))
+    feed(slam, frame, np.where(frame[1] < 4.5, 1, 2).astype(np.int32))
+    m = slam.metrics()
+    assert m["planes"] >= planes, m
+    if planes:
+        assert m["tracking_state"] == "Tracking"
+        assert int((slam.state.lm_plane >= 0).sum()) > 30
 
 
 def test_feeds_run():
