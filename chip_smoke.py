@@ -35,7 +35,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 7. the monocular path: 40 frames at 0.08 m a frame, two-view init, on the
    JAX monocular test's sequence (seed 42): TRACKING, >= 30 frames in the
    trajectory, Sim3-aligned ATE < 0.08 m; the seed-0 and seed-1
-   sequences (24 frames each) reported; driven with fixed summation orders
+   sequences (12 frames each) reported; driven with fixed summation orders
    (deterministic()), so that a run gives one result;
 8. the stereo path: 40 rendered pairs, 0.1 m baseline; TRACKING, tracked
    >= 39, > 200 landmarks, ATE < 0.06 m;
@@ -74,9 +74,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    planes, ATE < 0.06 m, > 200 landmarks), with the matcher checks of
    phases 4 and 7-11;
 13. whether torch.linalg.svd / eigh / det on the card make the host wait;
-14. one JSON line with each path's numbers, one with every kernel's
-   numbers (launches per path added), the card line, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+14. fisheye RGB-D (fisheye_path): a Kannala-Brandt 640x480 camera, 40
+   frames of the port's fisheye renderer (TRACKING, ATE < 0.06 m), with
+   the matcher checks of phases 4 and 7-12; then profiled like phase 6;
+15. equirectangular monocular (equirect_path): OpenVSLAM's aist
+   configuration (1920x960, 2000 keypoints, its mask rectangles), 24
+   frames of the port's cube room (initialized, TRACKING, Sim3 ATE <
+   0.10 m). Its matches take the masked matchers with the u window
+   wrapped, as the JAX package routes the sphere: 0 kernel launches by
+   design, and every masked-matcher call equal to the same call on the
+   CPU (PlainRecorder); then profiled;
+16. the fisheye stereo rectifier on the card against the CPU (maps within
+   1e-3 px, images within 1e-3 of 255), one pair timed;
+17. one JSON line with each path's numbers, one with the rectifier's, one
+   with every kernel's numbers (launches per path added), the card line,
+   and the result line ``{"ok": true, "device": {...}}`` last.
 
 It needs a CUDA device and the repository around it; it never falls back
 to the CPU and imports nothing of JAX.
@@ -114,7 +126,7 @@ CALL_SITES = {
 REPLACES = "structure_plp_slam_tpu/ops/pallas_matching.py:42"
 SOURCE = "structure_plp_slam_tpu_torch/csrc/fused_match.cu"
 NUM_FRAMES = 40
-REPORTED_MONO_FRAMES = 24  # phase 7's reported seeds (0 and 1)
+REPORTED_MONO_FRAMES = 12  # phase 7's reported seeds (0 and 1)
 PLP_FRAMES = 24    # phase 12 (a)
 LINE_FRAMES = 16   # phase 12 (b) and (c)
 PLP_KF_INTERVAL = 2
@@ -490,10 +502,92 @@ class SiteRecorder:
         self.system_cls._advance_pending_fix = self.advance_fix
 
 
-def drive_path(name, fm, recorder, slam, feed, items):
+class PlainRecorder:
+    """Wraps the masked matchers of ops/matching.py (the distance matrix of
+    the ±1 bit planes and the windowed matchers over it), the route the
+    equirectangular model takes in place of the kernel. It counts each
+    function's calls (the outermost only: ``match_by_projection`` computes
+    its distance matrix inside) and keeps their inputs and outputs on the
+    host for ``check``, int64 tensors as int32 (distances, levels and
+    keypoint indices all fit)."""
+
+    NAMES = ("distance_matrix_planes", "match_by_projection_precomputed",
+             "match_by_projection", "match_in_area")
+
+    def __init__(self):
+        from structure_plp_slam_tpu_torch.ops import matching
+
+        self.matching = matching
+        self.fns = {n: getattr(matching, n) for n in self.NAMES}
+        self.calls = {n: 0 for n in self.NAMES}
+        self.records = []
+        self.depth = 0
+
+    @staticmethod
+    def _host(x):
+        if not torch.is_tensor(x):
+            return x
+        return (x.to(torch.int32) if x.dtype == torch.int64 else x).cpu()
+
+    @staticmethod
+    def _back(x):
+        return x.to(torch.int64) if torch.is_tensor(x) and x.dtype == torch.int32 else x
+
+    def _wrap(self, name):
+        fn = self.fns[name]
+
+        def call(*args, **kw):
+            self.depth += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                self.depth -= 1
+            if self.depth == 0:
+                self.calls[name] += 1
+                outs = out if isinstance(out, tuple) else (out,)
+                self.records.append((name, [self._host(a) for a in args],
+                                     {k: self._host(v) for k, v in kw.items()},
+                                     [self._host(o) for o in outs]))
+            return out
+        return call
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(self.matching, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.fns.items():
+            setattr(self.matching, n, fn)
+
+    def check(self, name):
+        """Every recorded call run again on the CPU by the same function:
+        the outputs (indices, distances) must be equal. Returns the largest
+        absolute difference (0.0) and the calls checked by function."""
+        err, t0 = 0.0, time.perf_counter()
+        for k, (fn_name, args, kw, outs) in enumerate(self.records):
+            again = self.fns[fn_name](*[self._back(a) for a in args],
+                                      **{key: self._back(v) for key, v in kw.items()})
+            again = again if isinstance(again, tuple) else (again,)
+            for a, b in zip(outs, again):
+                a = self._back(a).to(torch.int64)
+                if not torch.equal(a, b.to(torch.int64)):
+                    raise AssertionError(f"path {name}: {fn_name} call {k} on the card differs "
+                                         f"from the CPU on {int((a != b).sum())} entries")
+                err = max(err, float((a - b).abs().max().item()) if a.numel() else 0.0)
+        print(f"masked matcher card == CPU: path {name}, all {len(self.records)} calls "
+              f"{self.calls} (max_abs_err {err}; checked in {time.perf_counter() - t0:.1f} s)")
+        return err
+
+
+def drive_path(name, fm, recorder, slam, feed, items, plain=None):
     """Drive one path with the kernel's counts set to 0 just before and
     read just after. ``feed(slam, item)`` feeds one frame and returns
-    its pose or None. Returns the run's numbers."""
+    its pose or None. ``plain``: a PlainRecorder for a path that matches
+    through the masked matchers by design (equirectangular): its kernel
+    launches must be 0, and every matcher call it implies must have gone
+    through those matchers, equal to their CPU run. Returns the run's
+    numbers."""
     slam.startup()
     steps0 = slam.num_track_steps
     relocs0 = len(slam.timer.times.get("relocalize", []))
@@ -503,7 +597,7 @@ def drive_path(name, fm, recorder, slam, feed, items):
     fm.reset_counts()
     tracked = 0
     t0 = time.perf_counter()
-    with recorder:
+    with recorder, (plain or contextlib.nullcontext()):
         for item in items:
             if feed(slam, item) is not None:
                 tracked += 1
@@ -545,8 +639,21 @@ def drive_path(name, fm, recorder, slam, feed, items):
               f"mean {s['mean_ms']:.3f} ms max {s['max_ms']:.3f} ms")
     print(f"path {name} card: {card_line()}")
     print(f"path {name}: fused_match launches {launches} of {calls} calls; by site "
-          f"{run['site_launches']} launches of {run['site_calls']} calls, expected {expected}; "
-          f"by rows {by_rows}")
+          f"{run['site_launches']} launches of {run['site_calls']} calls, expected {expected}"
+          f"{' through the masked matchers' if plain else ''}; by rows {by_rows}")
+    if plain is not None:
+        # Stage 1 and 2 of each track_frame are three windowed matches over
+        # the precomputed distances; each fuse is one match_by_projection.
+        want = {"match_by_projection_precomputed": 3 * frames_tf,
+                "match_by_projection": chains + loops}
+        got = {k: plain.calls[k] for k in want}
+        print(f"path {name}: masked matcher calls {plain.calls}, expected {want}")
+        if launches or calls or any(run["site_calls"].values()) or got != want:
+            raise AssertionError(f"path {name}: the kernel was called ({calls}) or the masked "
+                                 f"matchers were not called as expected ({got} != {want})")
+        run["plain_calls"] = dict(plain.calls)
+        run["max_abs_err"], run["max_abs_err_by_site"] = plain.check(name), {}
+        return run
     if not (launches == calls == sum(expected.values())
             and run["site_launches"] == run["site_calls"] == expected):
         raise AssertionError(f"path {name}: not every matcher call launched the kernel")
@@ -938,9 +1045,9 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
 
     (a) plp: RGB-D, lines on, loop closing on (the default), every frame
         with the instance mask np.where(depth < 4.5, 1, 2), 24 frames at
-        0.06 m a frame, max_kf_interval=PLP_KF_INTERVAL; then the same
-        frames under torch.profiler and one frame under the sync debug
-        mode;
+        0.06 m a frame, max_kf_interval=PLP_KF_INTERVAL; then 4 of the
+        same frames under torch.profiler and one frame under the sync
+        debug mode;
     (b) mono_lines: monocular, lines on, 16 frames at 0.08 m a frame,
         max_kf_interval=3, fixed sums (deterministic()), the texture of
         test_mono_point_line_slam (numpy seed 42): gated at that test's
@@ -1023,7 +1130,7 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
     gate("plp", all(r["line_stage_count"].values()), "a line or plane stage never ran")
     r["profile"] = profile_frames(
         lambda verbose_timing: system(cfg, verbose_timing, max_kf_interval=PLP_KF_INTERVAL),
-        frames, warm=4, count=8, feed=plp_feed, label="profile plp")
+        frames, warm=4, count=4, feed=plp_feed, label="profile plp")
     r["syncs_per_frame"] = count_syncs(
         lambda: system(cfg, False, max_kf_interval=PLP_KF_INTERVAL), frames, plp_feed)
     runs["plp"] = r
@@ -1107,6 +1214,175 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
     return runs
 
 
+def fisheye_path(fm, cfg, capacities=(256, 32768)):
+    """Phase 14: RGB-D through a Kannala-Brandt fisheye at full width:
+    tests/test_fisheye_system.py's camera scaled x2 (640x480, fx = fy =
+    480, k1..k4 = -0.05, 0.01, -0.003, 0.001), NUM_FRAMES frames of the
+    port's fisheye renderer at 0.05 m a frame (numpy seed 0), the default
+    keyframe interval (ROADMAP C15), loop closing on (the default). Gates:
+    TRACKING, ATE < 0.06 m (that test's bound), and drive_path's: every
+    matcher call launched the kernel, equal to its plain twin. Then 3
+    frames under torch.profiler (each traced frame costs ~15 s of event
+    parsing on the host)."""
+    import dataclasses
+
+    from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
+    from structure_plp_slam_tpu_torch.io import trajectory as traj_io
+    from structure_plp_slam_tpu_torch.models import mapper, tracker
+    from structure_plp_slam_tpu_torch.system import System, TrackerState
+    from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+    cam = Camera(name="fisheye", setup=CameraSetup.RGBD, model=CameraModel.FISHEYE, cols=640,
+                 rows=480, fx=480.0, fy=480.0, cx=319.5, cy=239.5, fps=30.0, k1=-0.05,
+                 k2=0.01, k3=-0.003, k4=0.001, focal_x_baseline=48.0, depth_threshold=400.0)
+    config = dataclasses.replace(cfg, camera=cam)
+    tex = synthetic_scene.make_texture(np.random.default_rng(0))
+    poses = synthetic_scene.trajectory(NUM_FRAMES, step=0.05)
+    frames = [(*synthetic_scene.render_fisheye(cam, tex, R, t), float(i) / 30.0)
+              for i, (R, t) in enumerate(poses)]
+
+    def make_system(verbose_timing=True):
+        return System(config, max_keyframes=capacities[0], max_landmarks=capacities[1],
+                      verbose_timing=verbose_timing, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    slam = make_system()
+    r = drive_path("fisheye", fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to), slam,
+                   lambda s, f: s.feed_RGBD_frame(f[0], f[1], f[2]), frames)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    ate = ate_of(traj_io, slam, poses, align_scale=False)
+    r["gates"] = {"ate_m": ate, "peak_mib": peak_mib}
+    print(f"path fisheye: ATE {ate:.6f} m; peak torch.cuda.max_memory_allocated "
+          f"{peak_mib:.1f} MiB")
+    gate("fisheye", r["state"] == TrackerState.TRACKING.value, f"ended in state {r['state']}")
+    gate("fisheye", r["tracked"] >= NUM_FRAMES - 1, f"tracked {r['tracked']} of {NUM_FRAMES}")
+    gate("fisheye", ate < 0.06, f"ATE {ate} >= 0.06 m")
+    r["profile"] = profile_frames(make_system, frames, warm=4, count=3, label="profile fisheye")
+    return r
+
+
+# OpenVSLAM's example/aist/equirectangular.yaml (RICOH THETA S, 1920x960):
+# Feature.mask_rectangles, normalized (x_min, x_max, y_min, y_max).
+EQUIRECT_MASK = ((0.0, 1.0, 0.0, 0.1), (0.0, 1.0, 0.84, 1.0), (0.0, 0.2, 0.7, 1.0),
+                 (0.8, 1.0, 0.7, 1.0))
+EQUIRECT_FRAMES = 24
+
+
+def equirect_path(fm, capacities=(256, 32768)):
+    """Phase 15: monocular equirectangular SLAM at the settings of
+    OpenVSLAM's shipped example/aist/equirectangular.yaml (1920x960, 2000
+    keypoints over 8 levels at scale factor 1.2, its four mask
+    rectangles), EQUIRECT_FRAMES frames of the port's cube room at 0.09 m
+    a frame (tests/test_equirect_system.py's texture, numpy seed 42, and
+    its max_kf_interval=3), loop closing on (the default), fixed sums
+    (deterministic(), ROADMAP C20). The sphere's matches take the masked
+    matchers with the u window wrapped, not the kernel (the JAX package's
+    routing), so the kernel's launches must be 0 and every masked matcher
+    call equal to its CPU run (PlainRecorder). Gates: the map initialized,
+    TRACKING, Sim3 ATE < 0.10 m (that test's bound). Then 2 frames under
+    torch.profiler."""
+    from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
+    from structure_plp_slam_tpu_torch.config import Config
+    from structure_plp_slam_tpu_torch.io import trajectory as traj_io
+    from structure_plp_slam_tpu_torch.models import mapper, tracker
+    from structure_plp_slam_tpu_torch.ops.orb import OrbParams
+    from structure_plp_slam_tpu_torch.system import System, TrackerState
+    from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+    cam = Camera(name="RICOH THETA S 960", setup=CameraSetup.MONOCULAR,
+                 model=CameraModel.EQUIRECTANGULAR, cols=1920, rows=960, fps=30.0)
+    config = Config(camera=cam, orb=OrbParams(max_num_keypts=2000, scale_factor=1.2,
+                                              num_levels=8, ini_fast_thr=20.0,
+                                              min_fast_thr=7.0, mask_rects=EQUIRECT_MASK),
+                    raw={})
+    t0 = time.perf_counter()
+    tex = synthetic_scene.make_texture(np.random.default_rng(42))
+    poses = synthetic_scene.trajectory(EQUIRECT_FRAMES, step=0.09)
+    frames = [(synthetic_scene.render_equirect(cam, tex, R, t)[0], float(i) / 30.0)
+              for i, (R, t) in enumerate(poses)]
+    print(f"path equirect: {len(frames)} frames rendered in {time.perf_counter() - t0:.1f} s")
+    feed = lambda s, f: s.feed_monocular_frame(f[0], f[1])  # noqa: E731
+
+    def make_system(verbose_timing=True):
+        return System(config, max_keyframes=capacities[0], max_landmarks=capacities[1],
+                      max_kf_interval=3, verbose_timing=verbose_timing, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    slam = make_system()
+    with deterministic():
+        r = drive_path("equirect", fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to),
+                       slam, feed, frames, plain=PlainRecorder())
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    est = slam.frame_trajectory()
+    ate = ate_of(traj_io, slam, poses, align_scale=True) if len(est) >= 3 else float("inf")
+    first = round(est[0][0] * 30) if est else None
+    r["gates"] = {"width": cam.cols, "keypoint_slots": slam.frontend.pad_to,
+                  "ate_sim3_m": ate, "trajectory_frames": len(est),
+                  "first_trajectory_frame": first, "peak_mib": peak_mib}
+    print(f"path equirect: {cam.cols}x{cam.rows}, {slam.frontend.pad_to} keypoint slots, "
+          f"Sim3-aligned ATE {ate:.6f} m over {len(est)} trajectory frames from frame {first}; "
+          f"peak torch.cuda.max_memory_allocated {peak_mib:.1f} MiB")
+    gate("equirect", slam.next_kf >= 2 and est, "the map never initialized")
+    gate("equirect", r["state"] == TrackerState.TRACKING.value, f"ended in state {r['state']}")
+    gate("equirect", ate < 0.10, f"Sim3 ATE {ate} >= 0.10 m")
+    r["profile"] = profile_frames(make_system, frames, warm=3, count=2, feed=feed,
+                                  label="profile equirect")
+    return r
+
+
+def rectify_fisheye():
+    """Phase 16: ops/rectify.StereoRectifier built from a fisheye node
+    (StereoRectifier.model: fisheye and its six K/D/R keys: each raw
+    camera turned 0.02 rad about y, Kannala-Brandt k1..k4 per side) for
+    the 640x480 rectified camera, on the card and on the CPU; a raw pair
+    rendered through those fisheye cameras rectified by both. Gates: the
+    maps within 1e-3 px, the images within 1e-3 of 255. Times one pair
+    on the card (CUDA events)."""
+    from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
+    from structure_plp_slam_tpu_torch.ops.rectify import StereoRectifier
+    from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+    def rot(th):
+        return np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+
+    rect = Camera(name="rect", setup=CameraSetup.STEREO, model=CameraModel.PERSPECTIVE,
+                  cols=640, rows=480, fx=480.0, fy=480.0, cx=319.5, cy=239.5, fps=30.0,
+                  focal_x_baseline=48.0, depth_threshold=40.0)
+    K_raw = np.array([[500.0, 0, 322.0], [0, 498.0, 236.0], [0, 0, 1.0]])
+    D = {"left": [-0.05, 0.01, -0.003, 0.001], "right": [-0.04, 0.008, -0.002, 0.0005]}
+    raw = {"StereoRectifier.model": "fisheye",
+           "StereoRectifier.K_left": K_raw, "StereoRectifier.K_right": K_raw,
+           "StereoRectifier.D_left": D["left"], "StereoRectifier.D_right": D["right"],
+           "StereoRectifier.R_left": rot(0.02), "StereoRectifier.R_right": rot(-0.02)}
+    tex = synthetic_scene.make_texture(np.random.default_rng(0))
+    pair = []
+    for side, dx in (("left", 0.0), ("right", -0.1)):
+        fe = Camera(name=side, setup=CameraSetup.MONOCULAR, model=CameraModel.FISHEYE, cols=640,
+                    rows=480, fx=K_raw[0, 0], fy=K_raw[1, 1], cx=K_raw[0, 2], cy=K_raw[1, 2],
+                    k1=D[side][0], k2=D[side][1], k3=D[side][2], k4=D[side][3])
+        pair.append(synthetic_scene.render_fisheye(fe, tex, rot(-0.02 if dx else 0.02),
+                                                   np.array([dx, 0.0, 0.0]))[0])
+    card, host = StereoRectifier(rect, raw, device="cuda"), StereoRectifier(rect, raw, device="cpu")
+    map_err = max(float((a.cpu() - b).abs().max()) for a, b in (
+        (card.my_l, host.my_l), (card.mx_l, host.mx_l), (card.my_r, host.my_r),
+        (card.mx_r, host.mx_r)))
+    pair_dev = [torch.from_numpy(a).cuda() for a in pair]
+    out_card = [t.cpu() for t in card(*pair_dev)]
+    out_host = host(*pair)
+    img_err = max(float((a - b).abs().max()) for a, b in zip(out_card, out_host))
+    ms_card = time_ms(lambda: card(*pair_dev))
+    inside = float((out_card[0] != 0).float().mean())
+    out = {"maps_max_abs_px": map_err, "image_max_abs": img_err, "rectify_pair_ms": ms_card,
+           "left_inside_share": inside, "card": card_line()}
+    print(f"rectify fisheye: maps card vs CPU max {map_err} px, images max {img_err} grey "
+          f"levels, {inside:.4f} of the left image inside the raw one; one pair on the card "
+          f"{ms_card:.4f} ms (CUDA events); card {out['card']}")
+    gate("rectify_fisheye", map_err <= 1e-3, f"maps differ by {map_err} px")
+    gate("rectify_fisheye", img_err <= 1e-3 * 255, f"images differ by {img_err}")
+    gate("rectify_fisheye", inside > 0.9, f"only {inside} of the image rectified")
+    return out
+
+
 def count_syncs(make_system, frames, feed, warm=4):
     """Host synchronizations torch's sync debug mode reports over one fed
     frame after ``warm`` frames (the frame's feed includes whatever
@@ -1148,6 +1424,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = [time.perf_counter()] * 2
+
+    def phase_done(label):
+        """Print the wall time of the phases since the last call."""
+        now = time.perf_counter()
+        print(f"phase time: {label} {now - t_start[1]:.1f} s (script {now - t_start[0]:.1f} s)")
+        t_start[1] = now
+
     # ---- 1. the card ---------------------------------------------------
     card = card_line()
     print(f"card: {card}")
@@ -1186,6 +1470,8 @@ def main():
     N = slam.frontend.pad_to
     rows_by_site = {"track_stage1": N, "track_stage2": min(8192, slam.max_landmarks),
                     "fuse": slam.max_landmarks}
+
+    phase_done("1-2")
 
     # ---- 3. kernel vs plain on synthetic inputs --------------------------
     rng = np.random.default_rng(0)
@@ -1234,6 +1520,8 @@ def main():
             raise AssertionError(f"no valid keypoint, tiles {tiles}")
         if kind.startswith("ties") and not 0 < tiles["mma"] == tiles["walked"]:
             raise AssertionError(f"{kind}: every tile has a pair in a window, tiles {tiles}")
+
+    phase_done("3")
 
     # ---- 4. main path at full width --------------------------------------
     frames, poses = synthetic_scene.make_sequence(np.random.default_rng(0), cam, NUM_FRAMES)
@@ -1324,14 +1612,19 @@ def main():
                             rgbd["max_abs_err_by_site"][site], site)
                for site in rows_by_site]
 
+    phase_done("4-5")
+
     # ---- 6. where the time goes -------------------------------------------
     # Eight frames around the second keyframe chain (the first with local
     # BA), which lands on the same feed in a fresh run of the same frames.
     start = chain_feeds[1] - 3 if len(chain_feeds) > 1 else 8
     profile_frames(make_system, frames, warm=start, count=8)
 
+    phase_done("6")
+
     # ---- 7-10. the monocular, stereo, relocalization and growth paths ----
     runs = {"rgbd": rgbd, **other_paths(fm, cam, cfg, N)}
+    phase_done("7-10")
 
     # ---- 11. loop closing ---------------------------------------------------
     runs["loop"], loop_args = loop_path(fm, cam, cfg, N)
@@ -1342,24 +1635,37 @@ def main():
         runs["loop"]["site_launches"]["loop_fuse"], runs["loop"]["max_abs_err_by_site"]
         .get("loop_fuse", 0.0), "fuse"))
 
+    phase_done("11")
+
     # ---- 12. points + lines + planes -------------------------------------
     runs.update(plp_paths(fm, cam, cfg, N))
-    for k in kernels:
-        site = k["name"].split("@")[1]
-        k["launches_by_path"] = {p: r["site_launches"][site] for p, r in runs.items()}
+    phase_done("12")
 
     # ---- 13. host syncs of the batched linear algebra ----------------------
     sync_check()
 
-    # ---- 14. result lines ------------------------------------------------
+    # ---- 14-16. the fisheye and equirectangular cameras ---------------------
+    phase_done("13")
+    runs["fisheye"] = fisheye_path(fm, cfg)
+    phase_done("14")
+    runs["equirect"] = equirect_path(fm)
+    phase_done("15")
+    rectify = rectify_fisheye()
+    phase_done("16")
+    for k in kernels:
+        site = k["name"].split("@")[1]
+        k["launches_by_path"] = {p: r["site_launches"][site] for p, r in runs.items()}
+
+    # ---- 17. result lines ------------------------------------------------
     paths = {p: {key: r[key] for key in ("frames", "tracked", "frames_per_s", "state",
                                          "keyframes", "landmarks", "relocalizations",
                                          "launches", "max_abs_err", "stage_median_ms",
                                          "max_keyframes", "max_landmarks", "gates")
-                 + tuple(k for k in ("line_stage_median_ms", "profile", "syncs_per_frame")
-                         if k in r)}
+                 + tuple(k for k in ("line_stage_median_ms", "profile", "syncs_per_frame",
+                                     "plain_calls") if k in r)}
              for p, r in runs.items()}
     print(json.dumps({"paths": paths}))
+    print(json.dumps({"rectify_fisheye": rectify}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

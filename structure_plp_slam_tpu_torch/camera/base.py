@@ -1,9 +1,8 @@
 """Camera model registry and dataclass.
 
 Port of structure_plp_slam_tpu/camera/base.py: a camera is a frozen
-dataclass of Python floats plus batched functions dispatched by model.
-This slice ports the perspective model; the fisheye and equirectangular
-models raise until ROADMAP A15 ports them.
+dataclass of Python floats plus batched functions in ``perspective.py``,
+``fisheye.py`` and ``equirectangular.py``, dispatched by model.
 """
 
 from __future__ import annotations
@@ -82,7 +81,7 @@ class Camera:
 
     def image_bounds(self) -> Tuple[float, float, float, float]:
         """(min_x, max_x, min_y, max_y) of the undistorted image frame."""
-        if not self.has_distortion:
+        if self.model is CameraModel.EQUIRECTANGULAR or not self.has_distortion:
             return 0.0, float(self.cols), 0.0, float(self.rows)
         corners = torch.tensor(
             [[0.0, 0.0], [self.cols, 0.0], [0.0, self.rows], [self.cols, self.rows]],
@@ -99,13 +98,13 @@ class Camera:
 
 def dispatch(camera: Camera):
     """The function module for this camera's model."""
-    if camera.model is not CameraModel.PERSPECTIVE:
-        raise NotImplementedError(
-            f"{camera.model.value} cameras are not ported yet (ROADMAP A15)"
-        )
-    from structure_plp_slam_tpu_torch.camera import perspective
+    from structure_plp_slam_tpu_torch.camera import equirectangular, fisheye, perspective
 
-    return perspective
+    return {
+        CameraModel.PERSPECTIVE: perspective,
+        CameraModel.FISHEYE: fisheye,
+        CameraModel.EQUIRECTANGULAR: equirectangular,
+    }[camera.model]
 
 
 def undistort_keypoints(camera: Camera, keypts):
@@ -130,13 +129,20 @@ def in_image(camera: Camera, uv, margin: float = 0.0):
 
 
 def uv_residual(camera: Camera, uv_pred, uv_obs):
-    """Reprojection residual ``uv_pred - uv_obs`` (no wrap-around: the
-    wrapping equirectangular model is not ported)."""
-    dispatch(camera)
-    return uv_pred - uv_obs
+    """Reprojection residual ``uv_pred - uv_obs``, wrapped horizontally for
+    equirectangular images (u and u + cols are the same pixel).
+    ``torch.round`` rounds half to even, as ``jnp.round``."""
+    d = uv_pred - uv_obs
+    if camera.model is CameraModel.EQUIRECTANGULAR:
+        du = d[..., 0]
+        du = du - torch.round(du / camera.cols) * camera.cols
+        d = torch.stack([du, d[..., 1]], dim=-1)
+    return d
 
 
 def cheirality(camera: Camera, points_cam):
-    """Positive depth (the pinhole observability gate)."""
-    dispatch(camera)
+    """Observability gate: positive depth for the pinhole-style models, any
+    direction for the full-sphere equirectangular model."""
+    if camera.model is CameraModel.EQUIRECTANGULAR:
+        return torch.sum(points_cam * points_cam, dim=-1) > 1e-12
     return points_cam[..., 2] > 1e-6

@@ -149,7 +149,6 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
     the line terms of ``lines`` when given. ``cull_at_iters``: iterations
     after which observations are chi2-gated (the reference's two-phase
     structure)."""
-    cam_base.dispatch(camera)
     C = prob.cam_pose.shape[0]
     M = prob.lm_pos.shape[0]
     dev = prob.cam_pose.device

@@ -10,6 +10,7 @@ packages draw the same minimal sets.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -40,16 +41,17 @@ def try_initialize_mono(camera, feats1, feats2, key, *,
     (perspective.cc:54-122): area matching, H and E estimation, H chosen
     when ``s_H / (s_H + s_E) > 0.40``, pose by cheirality. ``coherent``
     runs the spatially coherent consensus for both races (GC-RANSAC,
-    perspective.cc:70-85). Nothing here reads back to the host."""
-    if camera.model is CameraModel.EQUIRECTANGULAR:
-        raise NotImplementedError(
-            "equirectangular monocular initialization is not ported yet (ROADMAP A15)"
-        )
+    perspective.cc:70-85). An equirectangular camera matches with the u
+    window wrapped and takes the essential matrix of its sphere bearings
+    alone, with the spherical cheirality gate (bearing_vector.cc: no
+    homography on the sphere). Nothing here reads back to the host."""
+    equirect = camera.model is CameraModel.EQUIRECTANGULAR
     m12 = matching.match_in_area(
         feats1["xy"], feats1["angle"], matching.unpack_desc_bits(feats1["desc"]),
         feats1["valid"], feats2["xy"], feats2["angle"],
         matching.unpack_desc_bits(feats2["desc"]), feats2["valid"],
         window=100.0, max_hamming=50, ratio=0.9,
+        wrap_cols=float(camera.cols) if equirect else None,
     )
     has = m12 >= 0
     N = m12.shape[0]
@@ -64,9 +66,22 @@ def try_initialize_mono(camera, feats1, feats2, key, *,
     thr_e = max(1e-6, (2.0 / camera.focal_like) ** 2)
     if coherent:
         E, in_e, _ = ransac.essential_ransac_coherent(b1, b2, uv1, has, k2, inlier_thr=thr_e)
-        H, in_h, s_h = ransac.homography_ransac_coherent(uv1, uv2, has, k1)
     else:
         E, in_e, _ = ransac.essential_ransac(b1, b2, has, k2, inlier_thr=thr_e)
+    if equirect:
+        Rs_e, ts_e = ransac.decompose_essential(E)
+        R, t, pts, good, count = ransac.select_pose_by_cheirality(
+            Rs_e, ts_e, b1, b2, in_e & has, spherical=True,
+            reproj_cos=math.cos(5.0 / camera.focal_like))
+        return MonoInitResult(
+            success=count >= MIN_TRIANGULATED, R_2w=R, t_2w=t,
+            matches=torch.where(good, m12, -1), points_w=pts, point_ok=good,
+            num_points=count, used_homography=torch.zeros((), dtype=torch.bool, device=R.device),
+            num_matches=torch.sum(has),
+        )
+    if coherent:
+        H, in_h, s_h = ransac.homography_ransac_coherent(uv1, uv2, has, k1)
+    else:
         H, in_h, s_h = ransac.homography_ransac(uv1, uv2, has, k1)
 
     # The essential score in pixel units (angular err * f^2 ~ px^2), to
@@ -100,10 +115,12 @@ def try_initialize_mono(camera, feats1, feats2, key, *,
     )
 
 
-def scale_to_median_depth(points_w, point_ok, t_2w):
-    """Scale the map so the median point depth (z in frame 1 = world) is
-    1 (initializer.cc:310-320 scale_map). Returns (points, t, s).
-    The ray-length variant of the equirectangular path waits for A15."""
-    med = nanmedian_mean(points_w[:, 2], point_ok)
+def scale_to_median_depth(points_w, point_ok, t_2w, use_dist: bool = False):
+    """Scale the map so the median point depth (in frame 1 = world) is 1
+    (initializer.cc:310-320 scale_map). ``use_dist``: the ray length
+    replaces z (the equirectangular path, where points surround the
+    camera). Returns (points, t, s)."""
+    depth = torch.linalg.norm(points_w, dim=-1) if use_dist else points_w[:, 2]
+    med = nanmedian_mean(depth, point_ok)
     s = rdiv(1.0, torch.clamp(med, min=1e-9))
     return points_w * s, t_2w * s, s

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from structure_plp_slam_tpu_torch.camera import CameraModel
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.data import map_state as ms
 from structure_plp_slam_tpu_torch.models import bundle_adjustment as ba
@@ -323,7 +324,9 @@ def fuse_into_keyframe(camera, state: ms.MapState, kf, lm_cand_mask, ind=None):
     matcher (3 px window, no level gate, Hamming <= 50); a match on a free
     keypoint adds the observation, a match on a keypoint holding another
     landmark merges the pair into the more-observed one (fuse.cc:168,
-    mapping_module.cc:603-801). Returns (state, num_fused)."""
+    mapping_module.cc:603-801). The equirectangular model matches through
+    the masked distance matrix with the u window wrapped, as the JAX
+    package does (mapper.py:504-548). Returns (state, num_fused)."""
     L = state.lm_pos.shape[0]
     N = state.kf_xy.shape[1]
     dev = state.device
@@ -342,20 +345,31 @@ def fuse_into_keyframe(camera, state: ms.MapState, kf, lm_cand_mask, ind=None):
     )
     vis = vis & ~obs_here
 
-    # No level gate (the JAX CPU path's level_window=8 of 8 levels): every
-    # landmark and valid keypoint sits at level 0, invalid keypoints at 1e9.
-    kp_meta = torch.stack(
-        [state.kf_xy[kf, :, 0], state.kf_xy[kf, :, 1],
-         torch.where(state.kf_kp_valid[kf], 0.0, 1e9)],
-        dim=-1,
-    ).contiguous()
-    lm_meta = torch.stack(
-        [uv[:, 0], uv[:, 1], torch.where(vis, FUSE_RADIUS, -1.0), torch.zeros_like(uv[:, 0])],
-        dim=-1,
-    ).contiguous()
-    bd, _sd, kb = fused_match(state.lm_desc, lm_meta, state.kf_desc[kf].contiguous(), kp_meta)
-    matched = bd <= FUSE_MAX_HAMMING
-    kp_best = torch.where(matched, kb.to(torch.int64), -1)
+    if camera.model is CameraModel.EQUIRECTANGULAR:
+        kp_best, _ = matching.match_by_projection(
+            uv, torch.zeros((L,), dtype=torch.int64, device=dev),
+            matching.unpack_desc_bits(state.lm_desc), vis, state.kf_xy[kf], state.kf_level[kf],
+            matching.unpack_desc_bits(state.kf_desc[kf]), state.kf_kp_valid[kf],
+            radius_by_level=torch.full((8,), FUSE_RADIUS, device=dev),
+            max_hamming=FUSE_MAX_HAMMING, level_window=8, wrap_cols=float(camera.cols))
+        matched = kp_best >= 0
+    else:
+        # No level gate (the JAX CPU path's level_window=8 of 8 levels):
+        # every landmark and valid keypoint sits at level 0, invalid
+        # keypoints at 1e9.
+        kp_meta = torch.stack(
+            [state.kf_xy[kf, :, 0], state.kf_xy[kf, :, 1],
+             torch.where(state.kf_kp_valid[kf], 0.0, 1e9)],
+            dim=-1,
+        ).contiguous()
+        lm_meta = torch.stack(
+            [uv[:, 0], uv[:, 1], torch.where(vis, FUSE_RADIUS, -1.0), torch.zeros_like(uv[:, 0])],
+            dim=-1,
+        ).contiguous()
+        bd, _sd, kb = fused_match(state.lm_desc, lm_meta, state.kf_desc[kf].contiguous(),
+                                  kp_meta)
+        matched = bd <= FUSE_MAX_HAMMING
+        kp_best = torch.where(matched, kb.to(torch.int64), -1)
     safe_kp = torch.where(matched, kp_best, N)
     existing = torch.cat([row, row.new_full((1,), -1)])[safe_kp]
     counts = ms.landmark_observation_counts(state, ind)

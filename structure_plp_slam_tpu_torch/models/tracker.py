@@ -14,7 +14,9 @@ through level 1e9. Those masks and the fused kernel's level gate
 ``|Δlevel| <= 1.5`` compute the same function as the JAX package's
 CPU branch (``match_by_projection_precomputed`` with ``level_window=1``
 on integer levels), so the port is held against the JAX tracker on the
-CPU.
+CPU. The equirectangular model's u windows wrap and the kernel's do not,
+so that model takes the masked distance matrices with ``wrap_cols``
+instead, as in the JAX package (tracker.py:149-157).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from structure_plp_slam_tpu_torch.camera import CameraModel
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.data import map_state as ms
 from structure_plp_slam_tpu_torch.models import pose_opt
@@ -100,13 +103,14 @@ def track_frame(camera, state: ms.MapState, feats, R_pred, t_pred, last_kp_lm,
     ``t_pred``: motion-model prediction; ``last_kp_lm [N]``: the previous
     frame's keypoint -> landmark ids; ``obs_indicator``: the cached
     ``[K, L]`` observation indicator."""
-    cam_base.dispatch(camera)  # non-perspective models raise (ROADMAP A15)
     dev = state.device
     N = feats["xy"].shape[0]
     L = state.lm_pos.shape[0]
     K = state.kf_pose.shape[0]
     kp_desc = feats["desc"]
+    kp_bits = matching.unpack_desc_bits(kp_desc)
     kp_valid = feats["valid"]
+    wrap_cols = float(camera.cols) if camera.model is CameraModel.EQUIRECTANGULAR else None
     level = feats["level"]
     obs_info = inv_sigma_sq_table[torch.clamp(level, 0, num_levels - 1)]
     radius_narrow = torch.tensor(
@@ -121,14 +125,21 @@ def track_frame(camera, state: ms.MapState, feats, R_pred, t_pred, last_kp_lm,
         dim=-1,
     ).contiguous()
 
-    def assoc(R, t, ids, ids_valid, desc_c, radius_table, max_h, ratio):
-        """Windowed projection matching over a compact candidate set."""
+    def assoc(R, t, ids, ids_valid, desc_c, d_pre, radius_table, max_h, ratio):
+        """Windowed projection matching over a compact candidate set: the
+        fused matcher, or (equirectangular) the wrapped window over the
+        precomputed distance matrix ``d_pre``."""
         dmax_c = state.lm_dist_max[ids]
         uv, pc = _project_landmarks(camera, R, t, state.lm_pos[ids])
         vis, dist = _visibility(camera, R, uv, pc, state.lm_normal[ids],
                                 state.lm_dist_min[ids], dmax_c)
         cand = ids_valid & vis
         pred_level = matching.predict_scale_level(dist, dmax_c, scale_factor, num_levels)
+        if wrap_cols is not None:
+            kp_best, d_best = matching.match_by_projection_precomputed(
+                d_pre, uv, pred_level, cand, feats["xy"], level, radius_by_level=radius_table,
+                max_hamming=max_h, ratio=ratio, wrap_cols=wrap_cols)
+            return _assoc_to_kp_lm(ids, kp_best, d_best, N), vis
         radius = radius_table[torch.clamp(pred_level, 0, num_levels - 1)]
         best_d, second_d, kb = fused_match(
             desc_c, _lm_meta(uv, cand, radius, pred_level), kp_desc, kp_meta
@@ -143,19 +154,20 @@ def track_frame(camera, state: ms.MapState, feats, R_pred, t_pred, last_kp_lm,
     ids1 = torch.clamp(last_kp_lm, 0, L - 1)
     valid1 = (last_kp_lm >= 0) & state.lm_valid[ids1]
     desc1 = state.lm_desc[ids1].contiguous()
+    d1 = (None if wrap_cols is None else
+          matching.distance_matrix_planes(matching.unpack_desc_bits(desc1), kp_bits,
+                                          valid1, kp_valid))
     # Loose Hamming bound (match::base HAMMING_DIST_THR_HIGH = 100): the
     # spatial window is the primary gate; chi2 in the LM culls mistakes.
-    kp_lm_n0, _ = assoc(R_pred, t_pred, ids1, valid1, desc1, radius_narrow, 100, None)
-    kp_lm_w0, _ = assoc(R_pred, t_pred, ids1, valid1, desc1, radius_wide, 100, None)
+    kp_lm_n0, _ = assoc(R_pred, t_pred, ids1, valid1, desc1, d1, radius_narrow, 100, None)
+    kp_lm_w0, _ = assoc(R_pred, t_pred, ids1, valid1, desc1, d1, radius_wide, 100, None)
 
     # Fallback: descriptor-only mutual matching against the reference
     # keyframe's landmarks (bow_match_based_track, frame_tracker.cc:127).
     ref_lm_prev = state.kf_lm_idx[prev_ref_kf]
     ref_has = (ref_lm_prev >= 0) & state.kf_kp_valid[prev_ref_kf]
     d_ref = matching.distance_matrix_planes(
-        matching.unpack_desc_bits(kp_desc),
-        matching.unpack_desc_bits(state.kf_desc[prev_ref_kf]),
-        kp_valid, ref_has,
+        kp_bits, matching.unpack_desc_bits(state.kf_desc[prev_ref_kf]), kp_valid, ref_has,
     )
     best_r, ok_r = matching.mutual_best(d_ref, 50)
     kp_lm_f0 = torch.where(ok_r, ref_lm_prev[best_r], -1)
@@ -203,16 +215,25 @@ def track_frame(camera, state: ms.MapState, feats, R_pred, t_pred, last_kp_lm,
     cand2 = valid2 & vis2 & ~already[ids2]
     pred_level2 = matching.predict_scale_level(dist2, dmax2, scale_factor, num_levels)
     kp_free = kp_valid & (kp_lm_1 < 0)
-    kp_meta2 = kp_meta.clone()
-    kp_meta2[:, 2] = torch.where(kp_free, kp_level_f, KP_INVALID_LEVEL)
-    radius2 = radius_narrow[torch.clamp(pred_level2, 0, num_levels - 1)]
-    bd2, sd2, kb2 = fused_match(
-        state.lm_desc[ids2].contiguous(), _lm_meta(uv2, cand2, radius2, pred_level2),
-        kp_desc, kp_meta2,
-    )
-    ok2 = (bd2 <= 100) & (bd2 <= 0.85 * sd2)
-    kp_best2 = torch.where(ok2, kb2.to(torch.int64), -1)
-    kp_lm_2 = _assoc_to_kp_lm(ids2, kp_best2, bd2.to(torch.int64), N)
+    if wrap_cols is not None:
+        d2 = matching.distance_matrix_planes(matching.unpack_desc_bits(state.lm_desc[ids2]),
+                                             kp_bits, valid2, kp_valid)
+        kp_best2, d_best2 = matching.match_by_projection_precomputed(
+            torch.where(kp_free[None, :], d2, HAMMING_MASKED), uv2, pred_level2, cand2,
+            feats["xy"], level, radius_by_level=radius_narrow, max_hamming=100, ratio=0.85,
+            wrap_cols=wrap_cols)
+    else:
+        kp_meta2 = kp_meta.clone()
+        kp_meta2[:, 2] = torch.where(kp_free, kp_level_f, KP_INVALID_LEVEL)
+        radius2 = radius_narrow[torch.clamp(pred_level2, 0, num_levels - 1)]
+        bd2, sd2, kb2 = fused_match(
+            state.lm_desc[ids2].contiguous(), _lm_meta(uv2, cand2, radius2, pred_level2),
+            kp_desc, kp_meta2,
+        )
+        ok2 = (bd2 <= 100) & (bd2 <= 0.85 * sd2)
+        kp_best2 = torch.where(ok2, kb2.to(torch.int64), -1)
+        d_best2 = bd2.to(torch.int64)
+    kp_lm_2 = _assoc_to_kp_lm(ids2, kp_best2, d_best2, N)
     # Valid entries of the union are unique landmark ids (see the JAX
     # tracker's invariant note).
     kp_lm_union = torch.where(kp_lm_1 >= 0, kp_lm_1, kp_lm_2)

@@ -7,7 +7,9 @@ matmul of the bit planes gives every Hamming distance exactly (integer
 sums of at most 256 terms; TF32 is off package-wide). The per-frame
 tracker and the keyframe fuse go through the fused matcher
 (ops/fused_match.py) instead; these functions are its plain-path
-counterparts and serve the descriptor-only matches. ``match_in_area``
+counterparts, serve the descriptor-only matches and, as in the JAX
+package, every projection match of the equirectangular model, whose u
+windows wrap (``wrap_cols``) and the kernel's do not. ``match_in_area``
 and the rotation histogram serve monocular initialization.
 """
 
@@ -23,6 +25,15 @@ from structure_plp_slam_tpu_torch.utils.types import HAMMING_MASKED, topk_stable
 # and how many of the most popular keep their matches.
 ANGLE_BINS = 30
 KEEP_BINS = 3
+
+
+def _abs_du(pred_u, kp_u, wrap_cols):
+    """``|u_pred - u_kp|`` per pair ``[L, N]``, wrapped horizontally when
+    ``wrap_cols`` is set (equirectangular images are periodic in u)."""
+    du = torch.abs(pred_u[:, None] - kp_u[None, :])
+    if wrap_cols is not None:
+        du = torch.minimum(du, wrap_cols - du)
+    return du
 
 
 def unpack_desc_bits(desc):
@@ -47,9 +58,9 @@ def distance_matrix_planes(bits_a, bits_b, valid_a=None, valid_b=None):
 
 
 def _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level, radius_by_level,
-                   max_hamming, ratio, level_window):
+                   max_hamming, ratio, level_window, wrap_cols):
     radius = radius_by_level[torch.clamp(pred_level, 0, radius_by_level.shape[0] - 1)]
-    dx = torch.abs(pred_uv[:, 0:1] - kp_xy[None, :, 0])
+    dx = _abs_du(pred_uv[:, 0], kp_xy[:, 0], wrap_cols)
     dy = torch.abs(pred_uv[:, 1:2] - kp_xy[None, :, 1])
     in_window = (dx <= radius[:, None]) & (dy <= radius[:, None])
     in_level = torch.abs(kp_level[None, :] - pred_level[:, None]) <= level_window
@@ -68,24 +79,27 @@ def _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level, radius_by_level,
 def match_by_projection_precomputed(d, pred_uv, pred_level, lm_valid, kp_xy,
                                     kp_level, *, radius_by_level,
                                     max_hamming: int = 50, ratio=None,
-                                    level_window: int = 1):
-    """Windowed matching over a precomputed distance matrix ``d [L, N]``.
+                                    level_window: int = 1, wrap_cols=None):
+    """Windowed matching over a precomputed distance matrix ``d [L, N]``;
+    ``wrap_cols`` wraps the u window (equirectangular).
     Returns ``(kp_idx [L] (-1 = none), dist [L])``."""
     d = torch.where(lm_valid[:, None], d, HAMMING_MASKED)
     return _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level,
-                          radius_by_level, max_hamming, ratio, level_window)
+                          radius_by_level, max_hamming, ratio, level_window, wrap_cols)
 
 
 def match_by_projection(pred_uv, pred_level, lm_bits, lm_valid, kp_xy, kp_level,
                         kp_bits, kp_valid, *, radius_by_level,
-                        max_hamming: int = 50, ratio=None, level_window: int = 1):
+                        max_hamming: int = 50, ratio=None, level_window: int = 1,
+                        wrap_cols=None):
     """Landmark -> keypoint matching inside a reprojection window
     (reference match::projection): per-level pixel radius, ±level_window
-    pyramid levels, best Hamming with an optional Lowe ratio test.
+    pyramid levels, best Hamming with an optional Lowe ratio test;
+    ``wrap_cols`` wraps the u window (equirectangular).
     Returns ``(kp_idx [L] (-1 = none), dist [L])``."""
     d = distance_matrix_planes(lm_bits, kp_bits, lm_valid, kp_valid)
     return _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level,
-                          radius_by_level, max_hamming, ratio, level_window)
+                          radius_by_level, max_hamming, ratio, level_window, wrap_cols)
 
 
 def mutual_best(d, max_hamming: int):
@@ -100,15 +114,15 @@ def mutual_best(d, max_hamming: int):
 
 def match_in_area(kp_xy_1, kp_angle_1, kp_bits_1, kp_valid_1, kp_xy_2, kp_angle_2,
                   kp_bits_2, kp_valid_2, *, window: float = 100.0, max_hamming: int = 50,
-                  ratio: float = 0.9):
+                  ratio: float = 0.9, wrap_cols=None):
     """2D-2D windowed matching for monocular initialization (reference
     match::area::match_in_consistent_area): frame-1 keypoints match
     frame-2 keypoints inside a square window around their own
     coordinates, Lowe-ratio tested, kept only when mutually best, then
-    filtered by the rotation histogram. Returns ``idx_2_for_1 [N1]``
-    (-1 for unmatched). The equirectangular wrap waits for ROADMAP A15."""
+    filtered by the rotation histogram; ``wrap_cols`` wraps the u window
+    (equirectangular). Returns ``idx_2_for_1 [N1]`` (-1 for unmatched)."""
     d = distance_matrix_planes(kp_bits_1, kp_bits_2, kp_valid_1, kp_valid_2)
-    dx = torch.abs(kp_xy_1[:, 0:1] - kp_xy_2[None, :, 0])
+    dx = _abs_du(kp_xy_1[:, 0], kp_xy_2[:, 0], wrap_cols)
     dy = torch.abs(kp_xy_1[:, 1:2] - kp_xy_2[None, :, 1])
     d = torch.where((dx <= window) & (dy <= window), d, HAMMING_MASKED)
 

@@ -38,7 +38,9 @@ NUM_NEIGHBORS = 8
 NUM_SWEEPS = 4
 SMOOTHNESS = 2.0
 # A triangulated point counts when both rays agree with its direction
-# within REPROJ_COS and the rays' parallax exceeds MIN_PARALLAX_DEG.
+# within REPROJ_COS (the perspective init's; the equirectangular init
+# passes cos(5 px / focal_like)) and the rays' parallax exceeds
+# MIN_PARALLAX_DEG.
 MIN_PARALLAX_DEG = 1.0
 REPROJ_COS = 0.9998
 
@@ -341,24 +343,32 @@ def _dircos(p, b):
     return torch.sum(d * b, dim=-1)
 
 
-def select_pose_by_cheirality(Rs, ts, b1, b2, valid):
+def select_pose_by_cheirality(Rs, ts, b1, b2, valid, *, spherical: bool = False,
+                              reproj_cos: float = REPROJ_COS):
     """Pick the (R, t) candidate with the most valid triangulations.
 
     ``Rs [C,3,3], ts [C,3]``: candidate poses of camera 2 wrt camera 1
     (x2 = R x1 + t); ``b1, b2 [N, 3]`` bearings; ``valid [N]``. A point
     counts when it lies in front of both cameras, both rays agree with
-    its direction within REPROJ_COS and the ray parallax exceeds
-    MIN_PARALLAX_DEG (initialize/base.cc check_pose). Returns (R, t,
-    points_c1 [N,3], good_mask [N], num_good); the first candidate wins a
-    tie. The spherical (equirectangular) gate waits for ROADMAP A15."""
+    its direction within ``reproj_cos`` and the ray parallax exceeds
+    MIN_PARALLAX_DEG (initialize/base.cc check_pose). ``spherical``
+    (full-sphere bearings, equirectangular): points behind the camera are
+    observable, so "in front" is along the ray (point . bearing > 0) in
+    both cameras instead of z > 0 (initialize/bearing_vector.cc).
+    Returns (R, t, points_c1 [N,3], good_mask [N], num_good); the first
+    candidate wins a tie."""
     max_cos = math.cos(math.radians(MIN_PARALLAX_DEG))
     pts_all, good_all = [], []
     for c in range(Rs.shape[0]):
         R, t = Rs[c], ts[c]
         pts = triangulation.triangulate_dlt(b1, b2, R, t)
         pts_c2 = pts @ R.T + t
-        depth_ok = (pts[:, 2] > 1e-6) & (pts_c2[:, 2] > 1e-6)
-        reproj_ok = (_dircos(pts, b1) > REPROJ_COS) & (_dircos(pts_c2, b2) > REPROJ_COS)
+        if spherical:
+            depth_ok = ((torch.sum(pts * b1, dim=-1) > 1e-6)
+                        & (torch.sum(pts_c2 * b2, dim=-1) > 1e-6))
+        else:
+            depth_ok = (pts[:, 2] > 1e-6) & (pts_c2[:, 2] > 1e-6)
+        reproj_ok = (_dircos(pts, b1) > reproj_cos) & (_dircos(pts_c2, b2) > reproj_cos)
         parallax_ok = torch.sum((b1 @ R.T) * b2, dim=-1) < max_cos
         pts_all.append(pts)
         good_all.append(depth_ok & reproj_ok & parallax_ok & valid)

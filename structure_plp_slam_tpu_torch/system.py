@@ -40,9 +40,15 @@ follow the JAX System's key sequence from ``seed`` (``utils/prng``): one
 key per mono init attempt, per keyframe, per lost frame, per loop
 validation, per init plane fit and, with lines, per fed frame.
 
-What the port does not have yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: non-perspective cameras and the
-multi-device global BA.
+Cameras: perspective, fisheye (Kannala-Brandt) and equirectangular
+(360 degrees, monocular; its matching takes the masked distance matrices
+with the u window wrapped, as the JAX package routes it).
+
+Control: ``pause_tracker`` / ``resume_tracker`` and ``request_terminate``
+make the feeds drop frames (they return None); ``disable_mapping_module``
+stops keyframe insertion; ``get_landmarks`` reads the map's points. What
+the port does not have yet raises ``NotImplementedError`` naming the
+ROADMAP item that brings it: the multi-device global BA.
 
 Usage:
     slam = System(config)   # device="cuda"
@@ -66,8 +72,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from structure_plp_slam_tpu_torch.camera import CameraSetup
-from structure_plp_slam_tpu_torch.camera import base as cam_base
+from structure_plp_slam_tpu_torch.camera import CameraModel, CameraSetup
 from structure_plp_slam_tpu_torch.config import Config
 from structure_plp_slam_tpu_torch.data import map_database
 from structure_plp_slam_tpu_torch.data import map_state as ms
@@ -404,7 +409,6 @@ class System:
         async_loop_ba: bool = True,
         device=None,
     ):
-        cam_base.dispatch(config.camera)  # non-perspective models raise (A15)
         self.device = resolve_device(device)
         self.timer = StageTimer(synced=verbose_timing, device=self.device)
         self.auto_grow = bool(auto_grow)
@@ -455,6 +459,8 @@ class System:
         self.num_frames = 0
         self.num_track_steps = 0
         self._running = False
+        self._paused = False
+        self._terminate_requested = False
         self.reset()
 
     # ------------------------------------------------------------------
@@ -798,7 +804,9 @@ class System:
             self._split_key()
 
     def _track(self, feats, ts: float, seg_mask=None):
-        if not self._running:
+        if self._paused or self._terminate_requested or not self._running:
+            # A paused tracker drops fed frames until resume_tracker()
+            # (system.cc:482-528, the pause protocol).
             return None
         self._cur_seg_mask = (None if seg_mask is None else
                               torch.as_tensor(np.asarray(seg_mask), device=self.device)
@@ -1027,7 +1035,9 @@ class System:
                 self._init_seg_mask = self._cur_seg_mask
             return False
 
-        pts, t2, _ = initializer.scale_to_median_depth(res.points_w, res.point_ok, res.t_2w)
+        pts, t2, _ = initializer.scale_to_median_depth(
+            res.points_w, res.point_ok, res.t_2w,
+            use_dist=self.camera.model is CameraModel.EQUIRECTANGULAR)
         f1 = self._init_feats
         dev = self.device
         N = self.frontend.pad_to
@@ -1211,6 +1221,39 @@ class System:
     def num_landmarks(self) -> int:
         self._drain_pending()
         return int(self._state.lm_valid.sum())
+
+    def get_landmarks(self) -> np.ndarray:
+        """World positions ``[M, 3]`` of the valid point landmarks."""
+        self._drain_pending()
+        return self._state.lm_pos[self._state.lm_valid].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Pause / terminate protocol (reference: system.h:112-192). Mapping and
+    # loop closing run inside the feeds, not on threads of their own, so
+    # pausing the tracker pauses everything.
+    # ------------------------------------------------------------------
+    def pause_tracker(self):
+        self._drain_pending()
+        self._paused = True
+
+    def resume_tracker(self):
+        self._paused = False
+
+    def tracker_is_paused(self) -> bool:
+        return self._paused
+
+    def request_terminate(self):
+        self._drain_pending()
+        self._terminate_requested = True
+
+    def terminate_is_requested(self) -> bool:
+        return self._terminate_requested
+
+    def disable_mapping_module(self):
+        self.enable_mapping = False
+
+    def enable_mapping_module(self):
+        self.enable_mapping = True
 
     def disable_loop_detector(self):
         self.enable_loop_closing = False

@@ -1,10 +1,12 @@
 """Synthetic renderable RGB-D scene (numpy + the port's own ops).
 
 The port's copy of tests/synthetic_scene.py's make_texture, render,
-trajectory and make_sequence, built on the port's gaussian_blur and
-so3_exp so that it runs without JAX: a textured background plane at
-z = PLANE_Z plus a foreground patch at z = FG_Z, rendered through a
-perspective camera with exact depth and ground-truth poses.
+render_fisheye, render_equirect, trajectory and make_sequence, built on
+the port's gaussian_blur, so3_exp and camera functions so that it runs
+without JAX: a textured background plane at z = PLANE_Z plus a foreground
+patch at z = FG_Z, rendered through a perspective or fisheye camera with
+exact depth and ground-truth poses, or a textured cube room around an
+equirectangular camera.
 """
 
 from __future__ import annotations
@@ -52,6 +54,31 @@ def render(camera, tex, R_cw, t_cw, plane_half: float = PLANE_HALF):
          np.ones_like(xs, np.float64)],
         -1,
     )
+    return _shade_planes(tex, R_cw, t_cw, d, plane_half)
+
+
+def render_fisheye(camera, tex, R_cw, t_cw, plane_half: float = PLANE_HALF):
+    """Render the two planes through a Kannala-Brandt fisheye camera
+    (distorted image + depth). Each pixel's ray comes from the camera
+    model's own undistortion, so the image is what the frontend undoes."""
+    from structure_plp_slam_tpu_torch.camera import fisheye
+
+    H, W = camera.rows, camera.cols
+    ys, xs = np.mgrid[0:H, 0:W]
+    pix = np.stack([xs.ravel(), ys.ravel()], 1).astype(np.float32)
+    und = fisheye.undistort_keypoints(camera, torch.from_numpy(pix)).numpy()
+    d = np.stack(
+        [(und[:, 0] - camera.cx) / camera.fx, (und[:, 1] - camera.cy) / camera.fy,
+         np.ones(len(und))],
+        -1,
+    ).reshape(H, W, 3)
+    return _shade_planes(tex, R_cw, t_cw, d, plane_half)
+
+
+def _shade_planes(tex, R_cw, t_cw, d, plane_half):
+    """Image and z-depth of the rays ``d [H, W, 3]`` (camera frame) of a
+    camera at pose (R_cw, t_cw) on the background plane and the
+    foreground patch."""
     R_wc = R_cw.T
     C = -R_cw.T @ t_cw
     dw = d @ R_wc.T
@@ -83,6 +110,44 @@ def render(camera, tex, R_cw, t_cw, plane_half: float = PLANE_HALF):
     ).astype(np.float32)
     depth = ((pw - C) @ R_cw.T)[..., 2].astype(np.float32)
     return img, depth
+
+
+def render_equirect(camera, tex, R_cw, t_cw, box_half: float = 6.0):
+    """Render a 360 degree lat/long image from inside a textured cube
+    room: every bearing hits a wall, behind the camera too. Returns
+    (image, range map): the range is the ray length, the equirectangular
+    depth convention."""
+    from structure_plp_slam_tpu_torch.camera import equirectangular
+
+    H, W = camera.rows, camera.cols
+    ys, xs = np.mgrid[0:H, 0:W]
+    pix = np.stack([xs.ravel() + 0.5, ys.ravel() + 0.5], 1).astype(np.float32)
+    b = equirectangular.bearings(camera, torch.from_numpy(pix)).numpy().reshape(H, W, 3)
+    R_wc = R_cw.T
+    C = -R_cw.T @ t_cw
+    dw = b.astype(np.float64) @ R_wc.T
+    size = tex.shape[0]
+    best_lam = np.full((H, W), np.inf)
+    img = np.zeros((H, W), np.float32)
+    face = 0
+    for ax, u_ax, v_ax in ((0, 1, 2), (1, 0, 2), (2, 0, 1)):
+        for sign in (1.0, -1.0):
+            denom = dw[..., ax]
+            denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+            lam = (sign * box_half - C[ax]) / denom
+            pw_u = C[u_ax] + lam * dw[..., u_ax]
+            pw_v = C[v_ax] + lam * dw[..., v_ax]
+            hit = ((lam > 0.05) & (np.abs(pw_u) <= box_half + 1e-6)
+                   & (np.abs(pw_v) <= box_half + 1e-6) & (lam < best_lam))
+            u = (pw_u + box_half) / (2 * box_half) * (size - 1)
+            v = (pw_v + box_half) / (2 * box_half) * (size - 1)
+            off = (face * size) // 7  # a texture shift per face
+            ui = (np.clip(u.astype(int), 0, size - 1) + off) % size
+            vi = np.clip(v.astype(int), 0, size - 1)
+            img = np.where(hit, tex[vi, ui], img)
+            best_lam = np.where(hit, lam, best_lam)
+            face += 1
+    return img.astype(np.float32), best_lam.astype(np.float32)
 
 
 def trajectory(num_frames, step=0.06, rot=0.004):

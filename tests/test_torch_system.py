@@ -147,30 +147,121 @@ def test_system_default_device_needs_card(monkeypatch):
         System(_cfg(), **SIZES)
 
 
-PORTED_ITEMS = ("A14",)
+PORTED_ITEMS = ("A14", "A15")
+_FISHEYE_K = dict(k1=-0.05, k2=0.01, k3=-0.003, k4=0.001)
 
 
 @pytest.mark.parametrize("kwargs,camera,item", [
     (dict(with_lines=True), TCAM, "A14"),
-    ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.FISHEYE, **_KW), "A15"),
-    ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.EQUIRECTANGULAR, **_KW), "A15"),
+    ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.FISHEYE, **_KW, **_FISHEYE_K), "A15"),
+    ({}, Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.EQUIRECTANGULAR, name="eq",
+                cols=512, rows=256, fps=30.0), "A15"),
 ])
 def test_unported_options_raise(kwargs, camera, item):
     """Options the port has not yet raise, naming their ROADMAP item.
-    ``with_lines`` (A14) raised until the slice that ported it: now it
-    builds a line frontend and its first RGB-D frame creates 3D lines."""
+    ``with_lines`` (A14) and the fisheye and equirectangular cameras (A15)
+    raised until the slices that ported them: now the line frontend's
+    first RGB-D frame creates 3D lines, a fisheye RGB-D System tracks its
+    rendered frames, and an equirectangular monocular System (the
+    reference's sphere is monocular) initializes from two views."""
     args = {**SIZES, **kwargs, "device": "cpu"}
     if item not in PORTED_ITEMS:
         with pytest.raises(NotImplementedError, match=item):
             System(_cfg(camera), **args)
         return
     slam = System(_cfg(camera), **args)
-    assert slam.frontend.with_lines
     slam.startup()
+    tex = synthetic_scene.make_texture(np.random.default_rng(42))
+    poses = synthetic_scene.trajectory(4, step=0.09)
+    if camera.model is CameraModel.EQUIRECTANGULAR:
+        for i, (R, t) in enumerate(poses):
+            slam.feed_monocular_frame(synthetic_scene.render_equirect(camera, tex, R, t)[0],
+                                      i / 30.0)
+        assert slam.tracking_state is TrackerState.TRACKING
+        assert slam.num_keyframes >= 2
+        return
+    if camera.model is CameraModel.FISHEYE:
+        for i, (R, t) in enumerate(poses[:2]):
+            slam.feed_RGBD_frame(*synthetic_scene.render_fisheye(camera, tex, R, t), i / 30.0)
+        assert slam.tracking_state is TrackerState.TRACKING
+        assert slam.num_landmarks > 100
+        return
+    assert slam.frontend.with_lines
     img, depth, ts = _frames()[0]
     slam.feed_RGBD_frame(img, depth, ts)
     assert slam.tracking_state is TrackerState.TRACKING
     assert slam.metrics()["lines"] >= 1
+
+
+def _started(**kw):
+    slam = System(_cfg(), device="cpu", **{**SIZES, **kw})
+    slam.startup()
+    return slam
+
+
+def test_pause_tracker_drops_frames():
+    """A paused System drops fed frames (the feed returns None, num_frames
+    and the trajectory stay) until resume_tracker(); pausing first applies
+    the lagged decisions, as the JAX System's does."""
+    frames = _frames()
+    slam = _started()
+    for img, depth, ts in frames[:3]:
+        slam.feed_RGBD_frame(img, depth, ts)
+    assert slam._pending
+    slam.pause_tracker()
+    assert slam.tracker_is_paused() and not slam._pending
+    n, traj = slam.num_frames, len(slam.frame_trajectory())
+    for img, depth, ts in frames[3:5]:
+        assert slam.feed_RGBD_frame(img, depth, ts) is None
+    assert slam.num_frames == n and len(slam.frame_trajectory()) == traj
+    slam.resume_tracker()
+    assert not slam.tracker_is_paused()
+    img, depth, ts = frames[5]
+    assert slam.feed_RGBD_frame(img, depth, ts) is not None
+    assert slam.num_frames == n + 1
+    slam.shutdown()
+    assert len(slam.frame_trajectory()) == traj + 1
+    assert slam.tracking_state is TrackerState.TRACKING
+
+
+def test_request_terminate_drops_frames():
+    frames = _frames()
+    slam = _started()
+    for img, depth, ts in frames[:2]:
+        slam.feed_RGBD_frame(img, depth, ts)
+    assert not slam.terminate_is_requested()
+    slam.request_terminate()
+    assert slam.terminate_is_requested() and not slam._pending
+    n = slam.num_frames
+    for img, depth, ts in frames[2:]:
+        assert slam.feed_RGBD_frame(img, depth, ts) is None
+    assert slam.num_frames == n
+
+
+def test_mapping_module_switch():
+    """With the mapping module disabled, tracking goes on and no keyframe
+    is inserted; enabling it again restores insertion."""
+    frames = _frames()
+    slam = _started()
+    img, depth, ts = frames[0]
+    slam.feed_RGBD_frame(img, depth, ts)
+    slam.disable_mapping_module()
+    assert not slam.enable_mapping
+    for img, depth, ts in frames[1:]:
+        assert slam.feed_RGBD_frame(img, depth, ts) is not None
+    slam.shutdown()
+    assert slam.num_keyframes == 1 and slam.tracking_state is TrackerState.TRACKING
+    assert len(slam.frame_trajectory()) == NUM_FRAMES
+    slam.enable_mapping_module()
+    assert slam.enable_mapping
+
+
+def test_get_landmarks_matches_jax():
+    js, _ = run_jax()
+    ts, _, _, _ = run_port_cpu()
+    a, b = js.get_landmarks(), ts.get_landmarks()
+    assert b.shape == a.shape and a.shape[0] > 200
+    assert np.abs(b - a).max() < 1e-3
 
 
 def test_loop_closing_system_runs():
