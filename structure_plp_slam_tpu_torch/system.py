@@ -50,6 +50,16 @@ stops keyframe insertion; ``get_landmarks`` reads the map's points. What
 the port does not have yet raises ``NotImplementedError`` naming the
 ROADMAP item that brings it: the multi-device global BA.
 
+I/O and viewers: ``save_map_database`` / ``load_map_database`` write and
+read msgpack snapshots that either package loads (``io/map_io.py``; a
+loaded map starts Lost and relocalizes); ``enable_autosave`` checkpoints
+every n keyframes through the native writer (``native.py``). Each
+consumed frame goes to ``get_frame_publisher()`` and the map is read by
+``get_map_publisher()`` (``publish/``), both copy-on-read; the live web
+viewer (``start_live_viewer``), the native TCP publisher
+(``start_native_publisher``, a packet per keyframe) and the dense RGB-D
+cloud (``store_dense_cloud=True``) are off unless asked for.
+
 Usage:
     slam = System(config)   # device="cuda"
     slam.startup()
@@ -65,7 +75,6 @@ import collections
 import contextlib
 import dataclasses
 import enum
-import logging
 import time
 from typing import Any, List, NamedTuple, Optional, Tuple
 
@@ -85,10 +94,13 @@ from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.models.relocalizer import Relocalizer
 from structure_plp_slam_tpu_torch.ops import lie
 from structure_plp_slam_tpu_torch.ops import orb as orb_ops
+from structure_plp_slam_tpu_torch.publish.frame_publisher import FramePublisher
+from structure_plp_slam_tpu_torch.publish.map_publisher import MapPublisher
 from structure_plp_slam_tpu_torch.utils import prng
-from structure_plp_slam_tpu_torch.utils.types import HostCopy, resolve_device, round_up
+from structure_plp_slam_tpu_torch.utils.logging import get_logger
+from structure_plp_slam_tpu_torch.utils.types import HostCopy, resolve_device, round_up, to_host
 
-_log = logging.getLogger("plpslam.torch.system")
+_log = get_logger("torch.system")
 
 
 class StageTimer:
@@ -175,7 +187,8 @@ def _track_step(camera, state, feats, carry: _TrackCarry, inv_sigma_sq, obs_ind,
                 min_obs, next_lm, *, num_levels, scale_factor, with_lines=False, timer=None):
     """The per-frame device pipeline: motion-model prediction, tracking,
     landmark statistics, line tracking, motion-model update, decision
-    packing. Returns (state, res, carry, packed, seg_lines or None)."""
+    packing, the viewer's plane id per keypoint. Returns (state, res, carry,
+    packed, seg_lines or None, kp_plane)."""
     R_pred = carry.Rv @ carry.R
     t_pred = carry.Rv @ carry.t + carry.tv
     res = tracker.track_frame(
@@ -204,7 +217,9 @@ def _track_step(camera, state, feats, carry: _TrackCarry, inv_sigma_sq, obs_ind,
         R=res.R, t=res.t, Rv=Rv2, tv=res.t - Rv2 @ carry.t,
         last_kp_lm=res.kp_lm, ref_kf=res.ref_kf,
     )
-    return state, res, carry2, _pack_decision(state, res, next_lm), seg_lines
+    L = state.lm_pos.shape[0]
+    kp_plane = torch.where(res.kp_lm >= 0, state.lm_plane[torch.clamp(res.kp_lm, 0, L - 1)], -1)
+    return state, res, carry2, _pack_decision(state, res, next_lm), seg_lines, kp_plane
 
 
 def _clear_failed_init(state):
@@ -383,6 +398,29 @@ class _PendingFrame:
     frames_since_kf: int
     seg_mask: Optional[torch.Tensor] = None
     seg_line_idx: Optional[torch.Tensor] = None
+    kp_plane: Optional[torch.Tensor] = None  # the viewer's plane id per keypoint
+    dense: Optional[tuple] = None  # (gray_small u8, depth_small f32) for the dense cloud
+
+
+def _keep_image(img):
+    """Retain a fed image for the frame publisher. A host numpy image is
+    COPIED (dataset readers may decode into a reused buffer); a tensor is
+    kept as it is (no copy off the card on the frame path)."""
+    if isinstance(img, np.ndarray):
+        return np.array(img, copy=True)
+    return img
+
+
+def _dense_sample(img, depthmap, stride: int, depthmap_factor: float):
+    """The strided gray (u8) and metric depth (f32) a keyframe keeps for the
+    dense cloud display; tensors stay on their device."""
+    s = stride
+    g, d = img[s // 2::s, s // 2::s], depthmap[s // 2::s, s // 2::s]
+    if torch.is_tensor(g):
+        return (torch.clamp(g, 0, 255).to(torch.uint8),
+                torch.as_tensor(d).to(torch.float32) * float(np.float32(1.0 / depthmap_factor)))
+    g, d = np.asarray(g), np.asarray(d).astype(np.float32)
+    return np.clip(g, 0, 255).astype(np.uint8), d * np.float32(1.0 / depthmap_factor)
 
 
 class System:
@@ -407,9 +445,17 @@ class System:
         auto_grow: bool = True,
         verbose_timing: bool = False,
         async_loop_ba: bool = True,
+        store_dense_cloud: bool = False,
+        dense_cloud_stride: int = 8,
         device=None,
     ):
         self.device = resolve_device(device)
+        # Dense RGB-D cloud display (reference: pangolin_viewer/viewer.h
+        # :132-133): each keyframe keeps a strided copy of its gray and
+        # depth images; viewers backproject them under the CURRENT
+        # keyframe poses, so the cloud follows BA and loop corrections.
+        self.store_dense_cloud = bool(store_dense_cloud)
+        self.dense_cloud_stride = int(dense_cloud_stride)
         self.timer = StageTimer(synced=verbose_timing, device=self.device)
         self.auto_grow = bool(auto_grow)
         # ``track_lag``: how many frames the host-side decisions may trail
@@ -461,6 +507,16 @@ class System:
         self._running = False
         self._paused = False
         self._terminate_requested = False
+        # Publishers (reference: system.h:103-106 getter pair) and the
+        # default-off surfaces: the live viewer, the native TCP publisher
+        # and the autosave writer.
+        self.frame_publisher = FramePublisher()
+        self.map_publisher = MapPublisher(self)
+        self._last_image = None
+        self._live_viewer = None
+        self._native_pub = None
+        self._autosave = None
+        self._autosave_every = 10
         self.reset()
 
     # ------------------------------------------------------------------
@@ -723,8 +779,18 @@ class System:
             self._tracking_state = TrackerState.LOST
 
     def shutdown(self):
+        """Stop feeding and tear down the background surfaces (reference:
+        system::shutdown joins its threads; here the viewer, publisher and
+        snapshot writer threads)."""
         self._drain_pending()
         self._running = False
+        self.stop_live_viewer()
+        if self._native_pub is not None:
+            self._native_pub.close()
+            self._native_pub = None
+        if self._autosave is not None:
+            self._autosave.close()  # writes what was submitted first
+            self._autosave = None
 
     def reset(self):
         # Pending decisions and loop work refer to the map being dropped.
@@ -733,6 +799,7 @@ class System:
         self._pending_loop_age = 0
         self._pending_fix: Optional[dict] = None
         self._pending_gba: Optional[dict] = None
+        self._dense_frames: dict = {}  # keyframe slot -> _dense_sample
         self._state = ms.create(self.max_keyframes, self.frontend.pad_to,
                                 self.max_landmarks, device=self.device)
         self._tracking_state = TrackerState.NOT_INITIALIZED
@@ -767,6 +834,7 @@ class System:
         self._frame_key()
         with self.timer.stage("frontend"):
             feats = self.frontend.mono(img, mask=mask)
+        self._last_image = _keep_image(img)
         return self._track(feats, timestamp, seg_mask)
 
     def feed_stereo_frame(self, img_left, img_right, timestamp: float, mask=None,
@@ -776,6 +844,7 @@ class System:
         self._frame_key()
         with self.timer.stage("frontend"):
             feats = self.frontend.stereo(img_left, img_right, mask=mask)
+        self._last_image = _keep_image(img_left)
         return self._track(feats, timestamp, seg_mask)
 
     def feed_RGBD_frame(self, img, depthmap, timestamp: float, mask=None,
@@ -789,7 +858,11 @@ class System:
         self._frame_key()
         with self.timer.stage("frontend"):
             feats = self.frontend.rgbd(img, depthmap, mask=mask)
-        return self._track(feats, timestamp, seg_mask)
+        self._last_image = _keep_image(img)
+        dense = (_dense_sample(img, depthmap, self.dense_cloud_stride,
+                               self.camera.depthmap_factor)
+                 if self.store_dense_cloud else None)
+        return self._track(feats, timestamp, seg_mask, dense)
 
     def _split_key(self):
         """The next key of the JAX System's sequence (``_split_key``)."""
@@ -803,7 +876,7 @@ class System:
         if self.with_lines:
             self._split_key()
 
-    def _track(self, feats, ts: float, seg_mask=None):
+    def _track(self, feats, ts: float, seg_mask=None, dense=None):
         if self._paused or self._terminate_requested or not self._running:
             # A paused tracker drops fed frames until resume_tracker()
             # (system.cc:482-528, the pause protocol).
@@ -825,7 +898,7 @@ class System:
                             ref_kf=self._ref_kf_dev)
         params = self.frontend.extractor.params
         with self.timer.stage("track"):
-            self._state, res, carry2, packed, seg_lines = _track_step(
+            self._state, res, carry2, packed, seg_lines, kp_plane = _track_step(
                 self.camera, self._state, feats, carry, self.frontend.inv_sigma_sq,
                 self._obs_indicator(), min_obs, self.next_lm,
                 num_levels=params.num_levels, scale_factor=params.scale_factor,
@@ -842,7 +915,8 @@ class System:
         # host starts now and is read ``track_lag`` frames later.
         entry = _PendingFrame(packed=HostCopy(packed), feats=feats, ts=ts, res=res,
                               frames_since_kf=self.frames_since_kf,
-                              seg_mask=self._cur_seg_mask, seg_line_idx=seg_lines)
+                              seg_mask=self._cur_seg_mask, seg_line_idx=seg_lines,
+                              kp_plane=kp_plane, dense=dense)
         self._pending.append(entry)
         # One phase of a loop fix and one step of a deferred global BA in
         # flight ride along with each frame.
@@ -881,6 +955,7 @@ class System:
             return self._lost(entry, ts, ref_kf_host, rel, num_tracked)
         self._tracking_state = TrackerState.TRACKING
         self.ref_kf = ref_kf_host
+        self._publish(entry, num_tracked)
 
         # Capacity growth just before the walls (the reference's map grows
         # without bound; here capacities double).
@@ -1149,6 +1224,8 @@ class System:
             )
         self.next_kf += 1
         self.frames_since_kf = 0
+        if entry.dense is not None:
+            self._dense_frames[slot] = entry.dense
         self._state = st
         self.next_lm = next_lm
         self.next_line = next_line
@@ -1158,6 +1235,12 @@ class System:
         self._ref_kf_dev = slot
         # The chain returns the post-chain indicator: seed the cache.
         self._ind_cache = ind
+        # Stream the new map to attached viewers; maybe checkpoint (two
+        # stages, so checkpoint I/O is not counted as publishing).
+        with self.timer.stage("kf.publish"):
+            self._publish_map_packet()
+        with self.timer.stage("kf.autosave"):
+            self._maybe_autosave()
         if do_detect:  # gated at the next keyframe, once the copy has landed
             self._pending_loop = (slot, (HostCopy(packed), cov))
             self._pending_loop_age = 0
@@ -1226,6 +1309,147 @@ class System:
         """World positions ``[M, 3]`` of the valid point landmarks."""
         self._drain_pending()
         return self._state.lm_pos[self._state.lm_valid].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Map persistence (reference: system.h:91-100, save/load map database)
+    # and autosave.
+    # ------------------------------------------------------------------
+    def _snapshot_kw(self) -> dict:
+        return dict(next_kf=int(self.next_kf), next_lm=int(self.next_lm),
+                    next_line=int(self.next_line), next_plane=int(self.next_plane),
+                    camera_name=self.camera.name, camera=self.camera)
+
+    def save_map_database(self, path: str):
+        """Write the map as a msgpack snapshot that either package loads
+        (``io/map_io.py``)."""
+        self._drain_pending()
+        from structure_plp_slam_tpu_torch.io import map_io
+
+        map_io.save_map(path, self._state, **self._snapshot_kw())
+
+    def load_map_database(self, path: str):
+        """Load a snapshot (either package's); tracking starts Lost and
+        relocalizes against the loaded map (reference:
+        run_image_localization.cc:66-76). The retrieval index needs no
+        rebuild: scoring reads the loaded map's own descriptors."""
+        from structure_plp_slam_tpu_torch.io import map_io
+
+        # Pending decisions, loop work and the dense images belong to the
+        # map being replaced.
+        self._drain_pending()
+        state, counters = map_io.load_map_with_counters(path, self.device)
+        n_kp = state.kf_desc.shape[1]
+        if n_kp != self.frontend.pad_to:
+            raise ValueError(
+                f"map {path} holds {n_kp} keypoint slots per keyframe; this System's frontend "
+                f"pads frames to {self.frontend.pad_to} (ORB max_num_keypts and num_levels "
+                f"of the config that built the map must match)")
+        self._state = state
+        self.next_kf = counters["next_kf"]
+        self.next_lm = counters["next_lm"]
+        self.next_line = counters["next_line"]
+        self.next_plane = counters["next_plane"]
+        self.max_keyframes = state.kf_pose.shape[0]
+        self.max_landmarks = state.lm_pos.shape[0]
+        self._dense_frames = {}
+        self._tracking_state = TrackerState.LOST
+        self._ind_cache = None
+
+    def enable_autosave(self, path: str, every_n_keyframes: int = 10):
+        """Periodic map checkpoints through the native double-buffered
+        writer (``native.AsyncSnapshotWriter``), every
+        ``every_n_keyframes`` keyframes: the file write runs on the
+        writer's thread; the copy of the map to the host and its packing
+        run in the keyframe (stage ``kf.autosave``)."""
+        from structure_plp_slam_tpu_torch import native
+
+        if self._autosave is not None:
+            self._autosave.close()
+        self._autosave = native.AsyncSnapshotWriter(path)
+        self._autosave_every = int(every_n_keyframes)
+
+    def _maybe_autosave(self):
+        if self._autosave is None or self.next_kf % self._autosave_every != 0:
+            return
+        from structure_plp_slam_tpu_torch.io import map_io
+
+        map_io.save_map_async(self._autosave, self._state, **self._snapshot_kw())
+
+    # ------------------------------------------------------------------
+    # Publishers and viewers (reference: system.h:103-106, the socket
+    # publisher and its web viewer).
+    # ------------------------------------------------------------------
+    def get_frame_publisher(self) -> FramePublisher:
+        return self.frame_publisher
+
+    def get_map_publisher(self) -> MapPublisher:
+        return self.map_publisher
+
+    def _publish(self, entry: _PendingFrame, num_tracked: int):
+        """Hand a consumed frame to the publishers: references only, no copy
+        to the host (viewers copy what they read when they poll). The
+        image is the newest fed one, as the JAX System pairs them."""
+        feats = entry.feats
+        self.frame_publisher.update(
+            image=(self._last_image if self._last_image is not None
+                   else np.zeros((self.camera.rows, self.camera.cols), np.uint8)),
+            kp_xy=feats["xy"], kp_valid=feats["valid"], kp_has_landmark=entry.res.kp_lm >= 0,
+            kp_plane=entry.kp_plane, segments=feats.get("seg"),
+            seg_valid=feats.get("seg_valid"), state=self._tracking_state.value,
+            num_tracked=num_tracked, timestamp=entry.ts,
+        )
+        self.map_publisher.set_current_cam_pose(self.pose)
+
+    def start_live_viewer(self, port: int = 0, max_points: int = 20000,
+                          host: str = "127.0.0.1") -> int:
+        """Start the live HTTP map viewer (reference: socket_publisher +
+        node.js web viewer). Returns the bound port; open
+        ``http://localhost:<port>``. Serves loopback only unless ``host``
+        says otherwise."""
+        from structure_plp_slam_tpu_torch.publish.live_server import LiveViewerServer
+
+        self.stop_live_viewer()  # a second start replaces the first server
+        self._live_viewer = LiveViewerServer(self.map_publisher, port=port,
+                                             max_points=max_points, host=host)
+        return self._live_viewer.port
+
+    def stop_live_viewer(self):
+        if self._live_viewer is not None:
+            self._live_viewer.stop()
+            self._live_viewer = None
+
+    def start_native_publisher(self, port: int = 0) -> int:
+        """Start the native TCP map publisher (reference: socket_publisher
+        streaming to the web viewer); each keyframe then sends connected
+        clients one length-prefixed msgpack packet (landmarks, keyframe
+        poses, the current pose). Returns the bound port."""
+        from structure_plp_slam_tpu_torch import native
+
+        if self._native_pub is not None:
+            self._native_pub.close()
+        self._native_pub = native.NativePublisher(port)
+        return self._native_pub.port
+
+    def _publish_map_packet(self):
+        pub = self._native_pub
+        if pub is None or pub.num_clients == 0:
+            return
+        import msgpack
+
+        st = self._state
+        valid = to_host(st.lm_valid)
+        pts = to_host(st.lm_pos)[valid].astype(np.float32)
+        kf_valid = to_host(st.kf_valid)
+        kfs = to_host(st.kf_pose)[kf_valid].astype(np.float32)
+        R, t = self.pose
+        pose = to_host(torch.cat([R, t[:, None]], 1)).astype(np.float32)
+        pub.publish(msgpack.packb({
+            "landmarks": pts.tobytes(),
+            "num_landmarks": int(len(pts)),
+            "keyframes": kfs.tobytes(),
+            "num_keyframes": int(len(kfs)),
+            "current_pose": pose.tobytes(),
+        }, use_bin_type=True))
 
     # ------------------------------------------------------------------
     # Pause / terminate protocol (reference: system.h:112-192). Mapping and

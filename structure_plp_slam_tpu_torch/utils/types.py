@@ -16,6 +16,7 @@ scatter-set with a fixed rule for duplicate indices.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Sentinel index for "no landmark / no match" in index tensors.
@@ -104,6 +105,15 @@ def nonzero_static(mask, size: int, fill_value: int):
     out = torch.full((size,), fill_value, dtype=torch.int64, device=mask.device)
     out[: idx.shape[0]] = idx
     return out
+
+
+def to_host(x) -> np.ndarray:
+    """``x`` as a numpy array on the host: a tensor on any device is copied
+    off it (``np.asarray`` of a CUDA tensor raises), anything else goes
+    through ``np.asarray``."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 class HostCopy:
