@@ -54,7 +54,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    the deferred global BA merged, TRACKING, the last keyframe within
    0.35 m of its ground truth, and the loop fix's fuse call (its own call
    site, loop_fuse) with active rows; its input timed like phase 5's.
-   Each of 4 and 7-12 runs at the main path's width (but phase 12's
+   Each of 4, 7-12 and 18 runs at the main path's width (but phase 12's
    gated monocular case) with the kernel's
    counts set to 0 before it and read after, and fails unless every
    matcher call of the path (three per track_frame, the relocalizer's
@@ -103,7 +103,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    publisher and a loopback TCP client, the live viewer polled at
    /map.json (HTTP 200, the landmark and dense counts) and the dense
    cloud, each gated; phase 12 (a)'s host syncs per frame gated at 61;
-18. one JSON line with each path's numbers, one with the rectifier's, one
+18. the landmark-sharded global BA (mesh_paths): (a) phase 11's loop path
+   with the System's ``loop_closer.mesh`` set to 4 landmark shards on
+   cuda:0 (and, with several visible cards, to a mesh over all of them):
+   phase 11's gates and kernel checks, each deferred global BA merged
+   through the mesh branch (one ``gba.chunk``, one mesh solve), the host
+   syncs of each mesh solve and the peak device memory printed; (b) the
+   dense mesh solve on the map (a) leaves against the single-device solve
+   (same state and anchor): poses within 5e-3, landmarks within 2e-2,
+   both timed; (c) the PCG mesh route on testing/large_map.py's K = 1024
+   chain map with 2 cm of pose noise: it must move the poses, and agree
+   with the same mesh solve on 4 CPU shards at the same bounds; its
+   distance from the single-device PCG is reported (ROADMAP C42); (b)
+   and (c) both timed and each traced once per solve under
+   torch.profiler;
+19. one JSON line with each path's numbers, one with the rectifier's, one
    with every kernel's numbers (launches per path added), the card line,
    and the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -380,7 +394,6 @@ def profile_frames(make_system, frames, warm, count, feed=None, label="profile")
     device kernels per frame, device busy share of the wall time, and the
     kernels with the most device time. ``feed(slam, frame)`` feeds one
     frame (RGB-D (image, depth, timestamp) by default)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if feed is None:
@@ -398,6 +411,29 @@ def profile_frames(make_system, frames, warm, count, feed=None, label="profile")
         slam.shutdown()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return trace_numbers(prof, wall_ms, count, label)
+
+
+def profile_call(fn, label):
+    """torch.profiler over one call of ``fn`` (trace_numbers per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return trace_numbers(prof, wall_ms, 1, label, unit="call")
+
+
+def trace_numbers(prof, wall_ms, count, label, unit="frame"):
+    """A trace's device kernels per ``unit`` (``count`` of them in
+    ``wall_ms``), the device busy share of the wall time, the kernels
+    with the most device time and the per-stage numbers; None (and a
+    line saying so) if the trace holds no device activity."""
+    from torch.autograd import DeviceType
+
     # Kernels, copies and fills only: the device timeline also mirrors the
     # stage ranges, under the ranges' own names.
     kernels = [e for e in prof.events()
@@ -441,19 +477,19 @@ def profile_frames(make_system, frames, warm, count, feed=None, label="profile")
             s[2] += us
             s[3] += e.cpu_time_total
     out = {
-        "frames": count,
-        "wall_ms_per_frame": wall_ms / count,
-        "device_busy_ms_per_frame": busy_us / 1e3 / count,
+        f"{unit}s": count,
+        f"wall_ms_per_{unit}": wall_ms / count,
+        f"device_busy_ms_per_{unit}": busy_us / 1e3 / count,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-        "device_ops_per_frame": len(kernels) / count,
+        f"device_ops_per_{unit}": len(kernels) / count,
         "top": [{"name": n[:80], "count": c, "ms": t / 1e3} for n, (c, t) in top],
         "stages": {k: {"calls": c, "device_ops_per_call": n / c, "device_ms_per_call": us / c / 1e3,
                        "host_ms_per_call": cpu / c / 1e3}
                    for k, (c, n, us, cpu) in stages.items()},
     }
-    print(f"{label}: {count} frames, wall {out['wall_ms_per_frame']:.3f} ms/frame, device busy "
-          f"{out['device_busy_ms_per_frame']:.3f} ms/frame, idle share "
-          f"{out['device_idle_share']:.4f}, {out['device_ops_per_frame']:.1f} device ops/frame")
+    print(f"{label}: {count} {unit}s, wall {out[f'wall_ms_per_{unit}']:.3f} ms/{unit}, device "
+          f"busy {out[f'device_busy_ms_per_{unit}']:.3f} ms/{unit}, idle share "
+          f"{out['device_idle_share']:.4f}, {out[f'device_ops_per_{unit}']:.1f} device ops/{unit}")
     for name, s in out["stages"].items():
         print(f"{label} stage {name}: {s['calls']} calls, {s['device_ops_per_call']:.1f} device "
               f"ops, {s['device_ms_per_call']:.3f} device ms, {s['host_ms_per_call']:.3f} host ms "
@@ -970,13 +1006,16 @@ def inject_drift(slam):
     slam.pose = (Rp @ T_R_inv, Rp @ T_t_inv + tp)
 
 
-def loop_path(fm, cam, cfg, N, capacities=(256, 32768)):
+def loop_path(fm, cam, cfg, N, capacities=(256, 32768), mesh=None, name="loop", device="cuda"):
     """Phase 11: loop closing at the main path's width and capacities on
     tests/test_loop_system.py's organic out-and-back (numpy seed 0; the
     sequence of tests/test_torch_loop_system.py::
     test_full_width_loop_closure_matches_jax, where the JAX System closes
     the loop with max_kf_interval=2 at this width). The outbound leg and
-    the return leg are driven in turn, the drift injected between them."""
+    the return leg are driven in turn, the drift injected between them.
+    ``mesh``: the System's ``loop_closer.mesh`` (phase 18; None, phase
+    11's, solves on one device whatever cards are visible). Returns the
+    run's numbers, the last loop_fuse call's inputs and the System."""
     from structure_plp_slam_tpu_torch.models import mapper, tracker
     from structure_plp_slam_tpu_torch.system import System, TrackerState
     from structure_plp_slam_tpu_torch.testing import synthetic_scene
@@ -989,7 +1028,8 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768)):
         img, depth = synthetic_scene.render(cam, tex, np.eye(3), -C, plane_half=14.0)
         frames.append((img, depth, i / 30.0))
     slam = System(cfg, max_keyframes=capacities[0], max_landmarks=capacities[1],
-                  max_kf_interval=2, verbose_timing=True, device="cuda")
+                  max_kf_interval=2, verbose_timing=True, device=device)
+    slam.loop_closer.mesh = mesh
     feed = lambda s, f: s.feed_RGBD_frame(f[0], f[1], f[2])  # noqa: E731
     validations = []  # [kf_cur, cand, matches, RANSAC inliers, refined inliers, scale]
     consume = slam.loop_closer.validate_consume
@@ -1000,11 +1040,12 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768)):
         return consume(packed)
 
     slam.loop_closer.validate_consume = record_validation
-    r = drive_path("loop_out", fm, SiteRecorder(fm, tracker, mapper, N), slam, feed, frames[:24])
-    gate("loop", r["state"] == TrackerState.TRACKING.value, f"outbound leg ended {r['state']}")
+    r = drive_path(f"{name}_out", fm, SiteRecorder(fm, tracker, mapper, N), slam, feed,
+                   frames[:24])
+    gate(name, r["state"] == TrackerState.TRACKING.value, f"outbound leg ended {r['state']}")
     inject_drift(slam)
     back = SiteRecorder(fm, tracker, mapper, N)
-    r2 = drive_path("loop_back", fm, back, slam, feed, frames[24:])
+    r2 = drive_path(f"{name}_back", fm, back, slam, feed, frames[24:])
     st = slam.state
     kf_ts = st.kf_timestamp.cpu().numpy()
     last = int(np.argmax(kf_ts * st.kf_valid.cpu().numpy()))
@@ -1034,7 +1075,7 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768)):
         "loop_stage_median_ms": {k: timing[k]["median_ms"] for k in stages if k in timing},
         "loop_stage_count": {k: timing[k]["count"] for k in stages if k in timing},
     }
-    print(f"path loop: {run['frames']} frames at {run['frames_per_s']:.3f} frames/s; "
+    print(f"path {name}: {run['frames']} frames at {run['frames_per_s']:.3f} frames/s; "
           f"{slam.loop_closer.num_loops_closed} loops closed {run['gates']['loop_edges']}; "
           f"last keyframe {last} centre {err:.6f} m from its ground truth; global BA merged "
           f"{run['gates']['gba_adopt_count']} times; loop_fuse active rows {active}; state "
@@ -1042,14 +1083,177 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768)):
           f"inliers, scale] {validations}")
     for k in stages:
         if k in timing:
-            print(f"path loop stage {k}: count {timing[k]['count']} median "
+            print(f"path {name} stage {k}: count {timing[k]['count']} median "
                   f"{timing[k]['median_ms']:.3f} ms max {timing[k]['max_ms']:.3f} ms")
-    gate("loop", slam.loop_closer.num_loops_closed >= 1, "no loop closed")
-    gate("loop", err < 0.35, f"last keyframe {err} m from its ground truth")
-    gate("loop", run["gates"]["gba_adopt_count"] >= 1, "the deferred global BA never merged")
-    gate("loop", run["state"] == TrackerState.TRACKING.value, f"ended {run['state']}")
-    gate("loop", fuse_inputs and min(active) > 0, f"loop_fuse active rows {active}")
-    return run, fuse_inputs[-1]
+    gate(name, slam.loop_closer.num_loops_closed >= 1, "no loop closed")
+    gate(name, err < 0.35, f"last keyframe {err} m from its ground truth")
+    gate(name, run["gates"]["gba_adopt_count"] >= 1, "the deferred global BA never merged")
+    gate(name, run["state"] == TrackerState.TRACKING.value, f"ended {run['state']}")
+    gate(name, fuse_inputs and min(active) > 0, f"loop_fuse active rows {active}")
+    return run, fuse_inputs[-1], slam
+
+
+MESH_SHARDS = 4  # phase 18: landmark shards on cuda:0
+MESH_BOUNDS = (5e-3, 2e-2)  # tests/test_distributed_ba.py's: poses, landmarks
+
+
+@contextlib.contextmanager
+def mesh_solve_recorder():
+    """Wraps ``global_ba._run_global_ba_sharded``, the mesh solve the
+    System's deferred global BA calls: per call, the host
+    synchronizations torch's sync debug mode reports inside it (by
+    file:line)."""
+    import warnings
+
+    from structure_plp_slam_tpu_torch.models import global_ba
+
+    solve, solves = global_ba._run_global_ba_sharded, []
+
+    def counted(*args, **kw):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = solve(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        at = {}
+        for w in caught:
+            if "synchroniz" in str(w.message).lower():
+                k = f"{Path(str(w.filename)).name}:{w.lineno}"
+                at[k] = at.get(k, 0) + 1
+        solves.append({"total": sum(at.values()), "at": at})
+        return out
+
+    global_ba._run_global_ba_sharded = counted
+    try:
+        yield solves
+    finally:
+        global_ba._run_global_ba_sharded = solve
+
+
+def mesh_against_single(name, cam, state, table, anchor, mesh, num_iters=10, cpu_mesh=None):
+    """``run_global_ba`` on ``mesh`` against the single-device solve on the
+    same state and anchor: the largest differences over the valid
+    keyframes and landmarks, how far each solve moved the poses, each
+    solve's median time over 3 calls between CUDA events (time_ms; the
+    host's preparation inside) and one call of each under torch.profiler
+    (device ops, busy share, the heaviest kernels). ``cpu_mesh``: also the
+    same mesh solve on those CPU shards, on a CPU copy of the state, and
+    the largest differences from it."""
+    from structure_plp_slam_tpu_torch.models import global_ba
+
+    def single():
+        return global_ba.run_global_ba(cam, state, table, anchor_kf=anchor, num_iters=num_iters)
+
+    def sharded():
+        return global_ba.run_global_ba(cam, state, table, anchor_kf=anchor, num_iters=num_iters,
+                                       mesh=mesh)
+
+    ref, out = single(), sharded()  # also the first calls, outside the timing
+    t1, tm = time_ms(single, reps=3, warmup=0), time_ms(sharded, reps=3, warmup=0)
+    kv, lv = state.kf_valid, state.lm_valid
+
+    def diffs(a, b):
+        return (float((a.kf_pose - b.kf_pose.to(a.kf_pose.device))[kv].abs().max().item()),
+                float((a.lm_pos - b.lm_pos.to(a.lm_pos.device))[lv].abs().max().item()))
+
+    d_pose, d_lm = diffs(out, ref)
+    moved = float((ref.kf_pose - state.kf_pose)[kv].abs().max().item())
+    moved_mesh = float((out.kf_pose - state.kf_pose)[kv].abs().max().item())
+    res = {"K": int(state.kf_pose.shape[0]), "keyframes": int(kv.sum().item()),
+           "landmarks": int(lv.sum().item()), "anchor": int(anchor), "num_iters": num_iters,
+           "shards": mesh.n_shards, "max_pose_diff": d_pose, "max_landmark_diff": d_lm,
+           "single_moved_poses_by": moved, "mesh_moved_poses_by": moved_mesh, "mesh_ms": tm,
+           "single_ms": t1, "route": "pcg" if state.kf_pose.shape[0] > 512 else "dense"}
+    print(f"mesh solve {name}: {res['route']} K={res['K']} ({res['keyframes']} keyframes, "
+          f"{res['landmarks']} landmarks), {mesh.n_shards} shards against one device: poses "
+          f"{d_pose:.3e}, landmarks {d_lm:.3e} (the solves moved the poses by {moved:.3e} "
+          f"single, {moved_mesh:.3e} mesh); mesh {tm:.3f} ms, single {t1:.3f} ms (medians of "
+          f"3, CUDA events); {card_line()}")
+    if cpu_mesh is not None:
+        host = type(state)(*(t.cpu() for t in state))
+        on_cpu = global_ba.run_global_ba(cam, host, table.cpu(), anchor_kf=anchor,
+                                         num_iters=num_iters, mesh=cpu_mesh)
+        res["max_pose_diff_cpu_mesh"], res["max_landmark_diff_cpu_mesh"] = diffs(out, on_cpu)
+        print(f"mesh solve {name}: against the same solve on {cpu_mesh.n_shards} CPU shards: "
+              f"poses {res['max_pose_diff_cpu_mesh']:.3e}, landmarks "
+              f"{res['max_landmark_diff_cpu_mesh']:.3e}")
+    res["profile_mesh"] = profile_call(sharded, f"profile {name} mesh")
+    res["profile_single"] = profile_call(single, f"profile {name} single")
+    return res
+
+
+def mesh_paths(fm, cam, cfg, N, device="cuda"):
+    """Phase 18: the landmark-sharded global BA. (a) phase 11's loop path
+    with ``loop_closer.mesh`` = 4 shards on cuda:0 (and, with several
+    cards, a mesh over all of them): phase 11's gates, every matcher call
+    on the kernel and equal to its plain twin, and each deferred global
+    BA merged through the mesh branch (one ``gba.chunk``, one mesh solve);
+    host syncs per mesh solve. (b) the dense mesh solve on the map (a)
+    leaves against the single-device solve, same anchor. (c) the PCG mesh
+    route on testing/large_map.py's K = 1024 chain map, its poses
+    perturbed, against the same mesh solve on CPU shards; its distance
+    from the single-device PCG reported (ROADMAP C42). ``device="cpu"``
+    rehearses the phase on the
+    CPU (with torch.cuda's synchronize, events and sync debug mode
+    stubbed by the caller)."""
+    from structure_plp_slam_tpu_torch.parallel.distributed_ba import LandmarkMesh
+    from structure_plp_slam_tpu_torch.testing.large_map import build_large_map
+
+    meshes = {"mesh": LandmarkMesh([f"{device}:0" if device == "cuda" else device]
+                                   * MESH_SHARDS)}
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        meshes["mesh_cards"] = LandmarkMesh(
+            [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    runs = {}
+    for name, mesh in meshes.items():
+        torch.cuda.reset_peak_memory_stats()
+        with mesh_solve_recorder() as solves:
+            run, _, slam = loop_path(fm, cam, cfg, N, mesh=mesh, name=name, device=device)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        count = run["gates"]["loop_stage_count"]
+        syncs = [s["total"] for s in solves]
+        run["gates"].update({"shards": mesh.n_shards, "devices": [str(d) for d in mesh.devices],
+                             "mesh_solves": len(solves), "syncs_per_mesh_solve": syncs,
+                             "sync_sites": [s["at"] for s in solves], "peak_mib": peak})
+        print(f"path {name}: {mesh.n_shards} landmark shards on {sorted(set(map(str, mesh.devices)))}; "
+              f"{len(solves)} mesh solves, gba.chunk {count.get('gba.chunk', 0)}, gba.adopt "
+              f"{count.get('gba.adopt', 0)}; host syncs per mesh solve {syncs} (by line "
+              f"{[s['at'] for s in solves]}); peak torch.cuda.max_memory_allocated {peak:.1f} MiB")
+        gate(name, len(solves) >= 1 and count.get("gba.chunk") == len(solves)
+             >= count.get("gba.adopt", 0) >= 1,
+             f"the deferred global BA did not merge through the mesh: {len(solves)} mesh solves, "
+             f"stage counts {count}")
+        r = mesh_against_single(f"{name} (b)", cam, slam.state, slam.frontend.inv_sigma_sq,
+                                slam.loop_closer.loop_edges[-1][1], mesh)
+        gate(name, r["max_pose_diff"] < MESH_BOUNDS[0] and r["max_landmark_diff"] < MESH_BOUNDS[1],
+             f"dense mesh solve off the single-device one: {r}")
+        run["mesh_solves"] = {"dense": r}
+        runs[name] = run
+
+    # (c) the PCG route past K = 512, on the K = 1024 chain map with 2 cm of
+    # noise on every pose but the anchor's (as built, the map is at its
+    # optimum and no solve moves it). The mesh PCG keeps the JAX package's
+    # chain preconditioner, whose blocks sit at the wrong chain positions
+    # (ROADMAP C42), so it is held against the same mesh solve on CPU
+    # shards; its distance from the single-device PCG is reported.
+    mesh = meshes["mesh"]
+    lcam, state, _ = build_large_map(np.random.default_rng(0), device=device)
+    g = torch.Generator(device=device).manual_seed(0)
+    pose = state.kf_pose.clone()
+    pose[1:, :, 3] += torch.randn(pose.shape[0] - 1, 3, device=device, generator=g) * 0.02
+    r = mesh_against_single("mesh (c)", lcam, state._replace(kf_pose=pose),
+                            torch.ones(8, device=device), 0, mesh, num_iters=2,
+                            cpu_mesh=LandmarkMesh(["cpu"] * MESH_SHARDS))
+    gate("mesh", r["mesh_moved_poses_by"] > 0.01,
+         f"the PCG mesh solve moved the perturbed poses by {r['mesh_moved_poses_by']} m")
+    gate("mesh", r["max_pose_diff_cpu_mesh"] < MESH_BOUNDS[0]
+         and r["max_landmark_diff_cpu_mesh"] < MESH_BOUNDS[1],
+         f"PCG mesh solve on the card off the same solve on the CPU: {r}")
+    runs["mesh"]["mesh_solves"]["pcg"] = r
+    return runs
 
 
 def line_z(slam):
@@ -1997,7 +2201,7 @@ def main():
     phase_done("7-10")
 
     # ---- 11. loop closing ---------------------------------------------------
-    runs["loop"], loop_args = loop_path(fm, cam, cfg, N)
+    runs["loop"], loop_args, _ = loop_path(fm, cam, cfg, N)
     timed["loop_fuse"] = loop_args
     torch.save({k: tuple(a.cpu() for a in v) for k, v in timed.items()}, INPUTS)
     kernels.append(kernel_entry(  # the dense synthetic input of fuse's shape beside it
@@ -2028,17 +2232,21 @@ def main():
     build_native()
     runs.update(io_paths(fm, cam, cfg, N, frames, poses))
     phase_done("17")
+
+    # ---- 18. the landmark-sharded global BA ---------------------------------
+    runs.update(mesh_paths(fm, cam, cfg, N))
+    phase_done("18")
     for k in kernels:
         site = k["name"].split("@")[1]
         k["launches_by_path"] = {p: r["site_launches"][site] for p, r in runs.items()}
 
-    # ---- 18. result lines ------------------------------------------------
+    # ---- 19. result lines ------------------------------------------------
     paths = {p: {key: r[key] for key in ("frames", "tracked", "frames_per_s", "state",
                                          "keyframes", "landmarks", "relocalizations",
                                          "launches", "max_abs_err", "stage_median_ms",
                                          "max_keyframes", "max_landmarks", "gates")
                  + tuple(k for k in ("line_stage_median_ms", "profile", "syncs_per_frame",
-                                     "plain_calls", "io", "cli") if k in r)}
+                                     "plain_calls", "io", "cli", "mesh_solves") if k in r)}
              for p, r in runs.items()}
     print(json.dumps({"paths": paths}))
     print(json.dumps({"rectify_fisheye": rectify}))

@@ -14,8 +14,11 @@ per-observation Jacobian blocks, scatters ``-U_o1 Hll^-1 U_o2^T`` over the
 pair list into the block camera system ``[K, K, 6, 6]``
 (``index_put_(accumulate=True)``), Cholesky-solves it and back-substitutes
 the landmarks. ``solve_pcg`` applies the same Schur operator matrix-free
-inside a PCG for large K. The landmark-sharded solve over several devices
-(``mesh``) is ROADMAP A17.
+inside a PCG for large K. With a ``mesh`` of more than one landmark shard
+:func:`run_global_ba` runs the landmark-sharded solve instead
+(``parallel/distributed_ba``, :func:`_run_global_ba_sharded`). The JAX
+package caches each mesh solve's jitted executable (``_DIST_BA_CACHE``);
+eager torch has nothing to cache, so the port has no such cache.
 
 Scatter-add order: on the card the sums of ``index_add_`` /
 ``index_put_(accumulate=True)`` run in no fixed order, so the normal
@@ -131,10 +134,11 @@ def _segment_sum(ids, vals, n):
     return vals.new_zeros((n,) + tuple(vals.shape[1:])).index_add_(0, ids, vals)
 
 
-def _normal_blocks(camera, cam_pose, lm_pos, data: GlobalBAData, damping):
+def _normal_blocks(camera, cam_pose, lm_pos, data: GlobalBAData, damping, live=None):
     """Per-observation camera-landmark blocks ``U_o [O, 6, 3]`` and the
     summed Hcc ``[K, 6, 6]``, bc ``[K, 6]``, damped Hll^-1 ``[L, 3, 3]``
-    and bl ``[L, 3]`` at the current estimate."""
+    and bl ``[L, 3]`` at the current estimate. ``live`` (a landmark
+    shard's observations): rows that are not live weigh 0."""
     K, L = cam_pose.shape[0], lm_pos.shape[0]
     has_stereo = data.obs_xr >= 0.0
     R = cam_pose[data.obs_cam, :, :3]
@@ -147,7 +151,8 @@ def _normal_blocks(camera, cam_pose, lm_pos, data: GlobalBAData, damping):
     chi2 = torch.sum(r_uv * r_uv, -1) * data.obs_info + torch.where(
         has_stereo, r_xr * r_xr * data.obs_info, 0.0)
     delta_sq = torch.where(has_stereo, robust.CHI2_3D, robust.CHI2_2D).to(torch.float32)
-    w = torch.where(cam_base.cheirality(camera, pc),
+    front = cam_base.cheirality(camera, pc)
+    w = torch.where(front if live is None else live & front,
                     robust.huber_weight(chi2, delta_sq) * data.obs_info, 0.0)
 
     iz = 1.0 / z
@@ -183,12 +188,88 @@ def _normal_blocks(camera, cam_pose, lm_pos, data: GlobalBAData, damping):
     return U_o, Hcc, bc, Hll_inv, bl
 
 
-def _schur_rhs(data, U_o, bc, Hll_inv, bl):
-    """bc - sum_m W_m Hll_m^-1 bl_m, summed per observation."""
-    K = bc.shape[0]
+def _schur_reduction(data, U_o, Hll_inv, bl, K):
+    """sum_m W_m Hll_m^-1 bl_m per camera, summed per observation (the
+    Schur right-hand side is bc minus it), and ``U_o Hll^-1 [O, 6, 3]``."""
     UHinv = torch.einsum("oij,ojk->oik", U_o, Hll_inv[data.obs_lm])
     rhs_o = torch.einsum("oij,oj->oi", UHinv, bl[data.obs_lm])
-    return bc - _segment_sum(data.obs_cam, rhs_o, K), UHinv
+    return _segment_sum(data.obs_cam, rhs_o, K), UHinv
+
+
+def _pair_blocks(data, U_o, Hll_inv, K, pair_valid=None):
+    """sum over the pair list of U_o1 Hll^-1 U_o2^T into the (cam(o1),
+    cam(o2)) blocks of ``[K, K, 6, 6]``; the reduced camera system is Hcc
+    on the diagonal minus it. Pairs where ``pair_valid`` is False add 0."""
+    S_pair = torch.einsum("pij,pjk,plk->pil", U_o[data.pair_o1],
+                          Hll_inv[data.obs_lm[data.pair_o1]], U_o[data.pair_o2])
+    if pair_valid is not None:
+        S_pair = torch.where(pair_valid[:, None, None], S_pair, 0.0)
+    S_red = U_o.new_zeros((K, K, 6, 6))
+    S_red.index_put_((data.obs_cam[data.pair_o1], data.obs_cam[data.pair_o2]), S_pair,
+                     accumulate=True)
+    return S_red
+
+
+def _camera_solve(S_red, Hcc, rhs, free, damping):
+    """The camera step from the reduced system S = diag(Hcc) - S_red:
+    fixed and invalid cameras get identity rows and a zero right-hand
+    side, the diagonal is damped, and a dense Cholesky solves it. A
+    failed factor gives NaN (the step is then dropped)."""
+    K = Hcc.shape[0]
+    eye6 = torch.eye(6, dtype=torch.float32, device=Hcc.device)
+    diag = torch.arange(K, device=Hcc.device)
+    free_f = free.to(torch.float32)
+    S = -S_red
+    S[diag, diag] += Hcc
+    S = S * free_f[:, None, None, None] * free_f[None, :, None, None]
+    S[diag, diag] += torch.where(free[:, None, None], 0.0, 1.0) * eye6
+    tr = torch.diagonal(S[diag, diag], dim1=-2, dim2=-1).sum(-1)
+    S[diag, diag] += (damping * torch.clamp(tr / 6.0, min=1e-6))[:, None, None] * eye6
+    rhs = rhs * free_f[:, None]
+    L_chol, info = torch.linalg.cholesky_ex(S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K))
+    dx_c = torch.cholesky_solve(rhs.reshape(6 * K, 1), L_chol).reshape(K, 6)
+    return torch.where(info == 0, dx_c, torch.nan)
+
+
+def _damped(Hcc, damping):
+    """Hcc with each diagonal block raised by damping * max(trace / 6, 1e-6)."""
+    eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
+    tr = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
+    return Hcc + (damping * torch.clamp(tr / 6.0, min=1e-6))[:, None, None] * eye6
+
+
+def _offdiag_product(data, U_o, UHinv, xf, L, K):
+    """sum_o U_o Hll^-1_lm(o) (sum_{o'~lm(o)} U_o'^T xf_c(o')) per camera:
+    the part of the Schur product S xf that Hcc does not give."""
+    g = _segment_sum(data.obs_lm, torch.einsum("oij,oi->oj", U_o, xf[data.obs_cam]), L)
+    return _segment_sum(data.obs_cam, torch.einsum("oik,ok->oi", UHinv, g[data.obs_lm]), K)
+
+
+def _apply_reduced(Hcc_d, x, offdiag, free):
+    """S x from its off-diagonal part on the free cameras; x itself on the
+    others (their rows are identity)."""
+    f = free.to(torch.float32)[:, None]
+    return torch.where(free[:, None], (torch.einsum("kij,kj->ki", Hcc_d, x * f) - offdiag) * f,
+                       x)
+
+
+def _self_blocks(data, U_o, UHinv, K):
+    """The self-pair terms sum_o U_o Hll^-1 U_o^T per camera: S's block
+    diagonal is the damped Hcc minus them."""
+    return _segment_sum(data.obs_cam, torch.einsum("oik,ojk->oij", UHinv, U_o), K)
+
+
+def _chain_blocks(data, U_o, UHinv, free_f, chain_o1, chain_o2, chain_pos, K):
+    """The chain couplings ``[K, 6, 6]`` of the PCG preconditioner: each
+    chain pair's -U_o1 Hll^-1 U_o2^T (zero unless both cameras are free)
+    summed at its position; a padding row (o1 < 0) or a position of K or
+    beyond adds nothing (a K + 1 buffer, cut)."""
+    O = data.obs_cam.shape[0]
+    ok = chain_o1 >= 0
+    o1s, o2s = torch.clamp(chain_o1, 0, O - 1), torch.clamp(chain_o2, 0, O - 1)
+    f12 = free_f[data.obs_cam[o1s]] * free_f[data.obs_cam[o2s]] * ok
+    S_chain = -torch.einsum("pik,pjk->pij", UHinv[o1s], U_o[o2s]) * f12[:, None, None]
+    return _segment_sum(torch.where(ok & (chain_pos < K), chain_pos, K), S_chain, K + 1)[:K]
 
 
 def _step(cam_pose, lm_pos, lm_valid, free, data, U_o, Hll_inv, bl, dx_c):
@@ -217,34 +298,13 @@ def solve(camera, cam_pose0, cam_valid, cam_fixed, lm_pos0, lm_valid, data: Glob
     """Global BA with the explicit reduced camera system and a dense
     Cholesky. Returns (cam_pose [K, 3, 4], lm_pos [L, 3])."""
     K = cam_pose0.shape[0]
-    dev = cam_pose0.device
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    diag = torch.arange(K, device=dev)
     free = (~cam_fixed) & cam_valid
-    free_f = free.to(torch.float32)
-    c1 = data.obs_cam[data.pair_o1]
-    c2 = data.obs_cam[data.pair_o2]
-    lm_p = data.obs_lm[data.pair_o1]
     cam_pose, lm_pos = cam_pose0, lm_pos0
     for _ in range(num_iters):
         U_o, Hcc, bc, Hll_inv, bl = _normal_blocks(camera, cam_pose, lm_pos, data, damping)
-        S_pair = -torch.einsum("pij,pjk,plk->pil", U_o[data.pair_o1], Hll_inv[lm_p],
-                               U_o[data.pair_o2])
-        S = torch.zeros((K, K, 6, 6), dtype=torch.float32, device=dev)
-        S.index_put_((c1, c2), S_pair, accumulate=True)
-        S[diag, diag] += Hcc
-        rhs, _ = _schur_rhs(data, U_o, bc, Hll_inv, bl)
-
-        S = S * free_f[:, None, None, None] * free_f[None, :, None, None]
-        S[diag, diag] += torch.where(free[:, None, None], 0.0, 1.0) * eye6
-        tr = torch.diagonal(S[diag, diag], dim1=-2, dim2=-1).sum(-1)
-        S[diag, diag] += (damping * torch.clamp(tr / 6.0, min=1e-6))[:, None, None] * eye6
-        rhs = rhs * free_f[:, None]
-
-        S_dense = S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
-        L_chol, info = torch.linalg.cholesky_ex(S_dense)
-        dx_c = torch.cholesky_solve(rhs.reshape(6 * K, 1), L_chol).reshape(K, 6)
-        dx_c = torch.where(info == 0, dx_c, torch.nan)  # failed factor: drop the step
+        S_red = _pair_blocks(data, U_o, Hll_inv, K)
+        rhs_red, _ = _schur_reduction(data, U_o, Hll_inv, bl, K)
+        dx_c = _camera_solve(S_red, Hcc, bc - rhs_red, free, damping)
         cam_pose, lm_pos = _step(cam_pose, lm_pos, lm_valid, free, data, U_o, Hll_inv, bl, dx_c)
     return _finish(cam_pose, cam_pose0, free), lm_pos
 
@@ -294,37 +354,25 @@ def solve_pcg(camera, cam_pose0, cam_valid, cam_fixed, lm_pos0, lm_valid, data: 
     comp_idx = torch.clamp(raw_of_comp, 0, K - 1)
     free = (~cam_fixed) & cam_valid
     free_f = free.to(torch.float32)
-    # comp_of_cam: keyframe slot -> chain position.
+    # comp_of_cam: keyframe slot -> chain position; a chain pair sits at
+    # its first keyframe's position.
     comp_of_cam = torch.zeros((K + 1,), dtype=torch.int64, device=dev)
     comp_of_cam[torch.where(comp_ok, comp_idx, K)] = torch.where(
         comp_ok, torch.arange(K, device=dev), 0)
-    chain_pair_ok = chain_o1 >= 0
-    O = data.obs_cam.shape[0]
-    o1s = torch.clamp(chain_o1, 0, O - 1)
-    o2s = torch.clamp(chain_o2, 0, O - 1)
-    c_pos = torch.where(chain_pair_ok, comp_of_cam[data.obs_cam[o1s]], K)
+    chain_pos = comp_of_cam[data.obs_cam[torch.clamp(chain_o1, 0, data.obs_cam.shape[0] - 1)]]
     cam_pose, lm_pos = cam_pose0, lm_pos0
     for _ in range(num_iters):
         U_o, Hcc, bc, Hll_inv, bl = _normal_blocks(camera, cam_pose, lm_pos, data, damping)
-        Hcc_d = Hcc + (damping * torch.clamp(
-            torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1) / 6.0, min=1e-6))[:, None, None] * eye6
-        rhs, UHinv = _schur_rhs(data, U_o, bc, Hll_inv, bl)
-        rhs = rhs * free_f[:, None]
+        Hcc_d = _damped(Hcc, damping)
+        rhs_red, UHinv = _schur_reduction(data, U_o, Hll_inv, bl, K)
+        rhs = (bc - rhs_red) * free_f[:, None]
 
         def matvec(x):
-            xf = x * free_f[:, None]
-            g = _segment_sum(data.obs_lm, torch.einsum("oij,oi->oj", U_o, xf[data.obs_cam]), L)
-            y_o = torch.einsum("oik,ok->oi", UHinv, g[data.obs_lm])
-            y = torch.einsum("kij,kj->ki", Hcc_d, xf) - _segment_sum(data.obs_cam, y_o, K)
-            return torch.where(free[:, None], y * free_f[:, None], x)
+            return _apply_reduced(
+                Hcc_d, x, _offdiag_product(data, U_o, UHinv, x * free_f[:, None], L, K), free)
 
-        # The block diagonal of S (self-pair terms) and the chain's
-        # off-diagonal blocks, gated on both cameras free.
-        D = Hcc_d - _segment_sum(data.obs_cam, torch.einsum("oik,ojk->oij", UHinv, U_o), K)
-        D = torch.where(free[:, None, None], D, eye6)
-        f12 = free_f[data.obs_cam[o1s]] * free_f[data.obs_cam[o2s]] * chain_pair_ok
-        S_chain = -torch.einsum("pik,pjk->pij", UHinv[o1s], U_o[o2s]) * f12[:, None, None]
-        C_t = _segment_sum(c_pos, S_chain, K + 1)[:K]
+        D = torch.where(free[:, None, None], Hcc_d - _self_blocks(data, U_o, UHinv, K), eye6)
+        C_t = _chain_blocks(data, U_o, UHinv, free_f, chain_o1, chain_o2, chain_pos, K)
         precond = pg._chain_preconditioner(D, C_t, comp_idx, comp_ok)
         dx_c = pg.pcg(matvec, precond, rhs, cg_iters)
         cam_pose, lm_pos = _step(cam_pose, lm_pos, lm_valid, free, data, U_o, Hll_inv, bl, dx_c)
@@ -334,16 +382,19 @@ def solve_pcg(camera, cam_pose0, cam_valid, cam_fixed, lm_pos0, lm_valid, data: 
 def run_global_ba(camera, state, inv_sigma_sq_table, anchor_kf: int = 0,
                   num_iters: int = 10, mesh=None):
     """Prepare the index lists, solve (dense up to K = 512, PCG beyond) and
-    write the poses and points back. ``mesh`` (a landmark-sharded solve
-    over several devices) is not ported yet (ROADMAP A17)."""
-    if mesh is not None:
-        raise NotImplementedError("global BA over a device mesh is not ported yet (ROADMAP A17)")
+    write the poses and points back. ``mesh``: a
+    :class:`~structure_plp_slam_tpu_torch.parallel.distributed_ba.LandmarkMesh`;
+    with more than one shard the solve runs landmark-sharded over it (one
+    reduction of the camera system per iteration), else on the map's
+    device."""
     data = prepare(state, inv_sigma_sq_table)
     if data.num_obs < MIN_OBS:
         return state
     K = state.kf_pose.shape[0]
     dev = state.kf_pose.device
     cam_fixed = torch.arange(K, device=dev) == anchor_kf
+    if mesh is not None and mesh.n_shards > 1:
+        return _run_global_ba_sharded(camera, state, data, cam_fixed, mesh, num_iters)
     if K > 512:
         c1, c2, raw_of_comp = prepare_chain_pairs(data, state.kf_valid.cpu().numpy())
         c1, c2 = pad_chain_pairs(c1, c2)
@@ -355,4 +406,48 @@ def run_global_ba(camera, state, inv_sigma_sq_table, anchor_kf: int = 0,
     else:
         cam_pose, lm_pos = solve(camera, state.kf_pose, state.kf_valid, cam_fixed,
                                  state.lm_pos, state.lm_valid, data, num_iters=num_iters)
+    return state._replace(kf_pose=cam_pose, lm_pos=lm_pos)
+
+
+def _run_global_ba_sharded(camera, state, data: GlobalBAData, cam_fixed, mesh, num_iters: int):
+    """Full-map BA over a landmark mesh: pack the prepared observation
+    lists into a BAProblem (a power-of-two bucket of at least 1024 rows,
+    the JAX package's; the pads name landmark 0, so they all land on shard
+    0), landmark-shard it, run the sharded solve (dense up to K = 512,
+    matrix-free PCG beyond) and undo the block-cyclic landmark layout on
+    the device."""
+    from structure_plp_slam_tpu_torch.models.bundle_adjustment import BAProblem
+    from structure_plp_slam_tpu_torch.parallel import distributed_ba as dba
+
+    n = mesh.n_shards
+    dev0 = mesh.devices[0]
+    O = int(data.num_obs)
+    # prepare_from_arrays pads to a bucket at least this large, with the
+    # JAX package's pad values (camera 0, landmark 0, x_r -1, weight 0).
+    O_pad = 1 << max(10, (O - 1).bit_length())
+    prob = BAProblem(
+        cam_pose=state.kf_pose, cam_fixed=cam_fixed, cam_valid=state.kf_valid,
+        lm_pos=state.lm_pos, lm_valid=state.lm_valid,
+        obs_cam=data.obs_cam[:O_pad], obs_lm=data.obs_lm[:O_pad], obs_uv=data.obs_uv[:O_pad],
+        obs_xr=data.obs_xr[:O_pad], obs_inv_sigma_sq=data.obs_info[:O_pad],
+        obs_valid=torch.arange(O_pad) < O,
+    )
+    K = state.kf_pose.shape[0]
+    if K > 512:
+        sp, obs_map = dba.shard_problem(prob, n, return_map=True, device=dev0)
+        c1, c2, raw_of_comp = prepare_chain_pairs(data, state.kf_valid.cpu().numpy())
+        chain = dba.shard_chain_pairs(c1, c2, obs_map, n, device=dev0)
+        comp_ok = torch.from_numpy(raw_of_comp >= 0).to(dev0)
+        comp_idx = torch.from_numpy(np.clip(raw_of_comp, 0, K - 1)).to(dev0)
+        run = dba.make_distributed_ba_pcg(mesh, camera, num_iters=num_iters)
+        cam_pose, lm_flat = run(sp, *chain, comp_idx, comp_ok)
+    else:
+        sp = dba.shard_problem(prob, n, device=dev0)
+        cam_pose, lm_flat = dba.make_distributed_ba(mesh, camera, num_iters=num_iters)(sp)
+    # Landmark m lives on shard m % n at slot m // n.
+    dev = state.kf_pose.device
+    m = torch.arange(state.lm_pos.shape[0], device=dev)
+    lm_pos = lm_flat.to(dev)[(m % n) * (lm_flat.shape[0] // n) + m // n]
+    cam_pose = torch.where(state.kf_valid[:, None, None], cam_pose.to(dev), state.kf_pose)
+    lm_pos = torch.where(state.lm_valid[:, None], lm_pos, state.lm_pos)
     return state._replace(kf_pose=cam_pose, lm_pos=lm_pos)

@@ -120,6 +120,10 @@ class LoopCloser:
         # later pose graph.
         self.loop_edges: List[Tuple[int, int, np.ndarray, np.ndarray, float]] = []
         self.num_loops_closed = 0
+        # Optional parallel.distributed_ba.LandmarkMesh: with more than one
+        # shard the post-loop global BA runs landmark-sharded over it
+        # (global_ba.run_global_ba's mesh route).
+        self.mesh = None
 
     # ------------------------------------------------------------------
     def detect_dispatch(self, state: ms.MapState, kf: int, ind=None):
@@ -375,7 +379,7 @@ class LoopCloser:
         if run_global_ba:
             pose_before = state.kf_pose
             state = global_ba.run_global_ba(self.camera, state, inv_sigma_sq_table,
-                                            anchor_kf=kf_cand)
+                                            anchor_kf=kf_cand, mesh=self.mesh)
             # Points moved with the BA; lines and planes ride their
             # reference keyframes' pose deltas (loop_bundle_adjuster.cc:110-145).
             ones = torch.ones((K,), **f32)

@@ -229,23 +229,34 @@ def _chain_preconditioner(D, C_t, comp_idx, comp_ok):
     return precond
 
 
+def _safe(v):
+    return torch.where(torch.abs(v) < 1e-20, torch.ones_like(v), v)
+
+
+def cg_start(precond, b):
+    """The PCG state (x, r, p, r.z) before the first step, from 0."""
+    z = precond(b)
+    return torch.zeros_like(b), b, z, torch.sum(b * z)
+
+
+def cg_step(x, rv, p, rz, Hp, precond):
+    """One step of preconditioned conjugate gradients given ``Hp = A p``
+    (the JAX package's scalar recurrence; a zero denominator is taken as
+    1). Returns the next (x, r, p, r.z)."""
+    a = rz / _safe(torch.sum(p * Hp))
+    x = x + a * p
+    rv = rv - a * Hp
+    z = precond(rv)
+    rz_new = torch.sum(rv * z)
+    return x, rv, z + rz_new / _safe(rz) * p, rz_new
+
+
 def pcg(matvec, precond, b, iters: int):
     """``iters`` steps of preconditioned conjugate gradients from 0 (the
-    JAX package's fixed-count scan; a zero denominator is taken as 1)."""
-    def safe(v):
-        return torch.where(torch.abs(v) < 1e-20, torch.ones_like(v), v)
-
-    z = precond(b)
-    x, rv, p, rz = torch.zeros_like(b), b, z, torch.sum(b * z)
+    JAX package's fixed-count scan)."""
+    x, rv, p, rz = cg_start(precond, b)
     for _ in range(iters):
-        Hp = matvec(p)
-        a = rz / safe(torch.sum(p * Hp))
-        x = x + a * p
-        rv = rv - a * Hp
-        z = precond(rv)
-        rz_new = torch.sum(rv * z)
-        p = z + rz_new / safe(rz) * p
-        rz = rz_new
+        x, rv, p, rz = cg_step(x, rv, p, rz, matvec(p), precond)
     return x
 
 

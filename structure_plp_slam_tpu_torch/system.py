@@ -46,9 +46,17 @@ with the u window wrapped, as the JAX package routes it).
 
 Control: ``pause_tracker`` / ``resume_tracker`` and ``request_terminate``
 make the feeds drop frames (they return None); ``disable_mapping_module``
-stops keyframe insertion; ``get_landmarks`` reads the map's points. What
-the port does not have yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: the multi-device global BA.
+stops keyframe insertion; ``get_landmarks`` reads the map's points.
+
+Several cards (``distributed_ba=True``, the default): on a CUDA device
+with more than one visible card, the post-loop global BA runs
+landmark-sharded over all of them (``parallel/distributed_ba``), as the
+JAX System does over ``jax.devices()``. A caller may set
+``loop_closer.mesh`` to any ``LandmarkMesh`` (several shards on one card,
+or on the CPU). Past K = 512 keyframes the mesh route's PCG keeps the JAX
+package's chain preconditioner, whose blocks sit at the wrong chain
+positions (ROADMAP C42): its poses may end away from the one-device
+solve's.
 
 I/O and viewers: ``save_map_database`` / ``load_map_database`` write and
 read msgpack snapshots that either package loads (``io/map_io.py``; a
@@ -94,6 +102,7 @@ from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.models.relocalizer import Relocalizer
 from structure_plp_slam_tpu_torch.ops import lie
 from structure_plp_slam_tpu_torch.ops import orb as orb_ops
+from structure_plp_slam_tpu_torch.parallel.distributed_ba import LandmarkMesh
 from structure_plp_slam_tpu_torch.publish.frame_publisher import FramePublisher
 from structure_plp_slam_tpu_torch.publish.map_publisher import MapPublisher
 from structure_plp_slam_tpu_torch.utils import prng
@@ -445,6 +454,7 @@ class System:
         auto_grow: bool = True,
         verbose_timing: bool = False,
         async_loop_ba: bool = True,
+        distributed_ba: bool = True,
         store_dense_cloud: bool = False,
         dense_cloud_stride: int = 8,
         device=None,
@@ -482,6 +492,9 @@ class System:
         # Loop closing and relocalization share the retrieval index.
         self.enable_loop_closing = enable_loop_closing
         self.loop_closer = loop_mod.LoopCloser(config.camera, self.device)
+        if distributed_ba and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            self.loop_closer.mesh = LandmarkMesh(
+                [f"cuda:{i}" for i in range(torch.cuda.device_count())])
         self.relocalizer = Relocalizer(config.camera, self.loop_closer.bow)
         self.num_relocalizations = 0
         # The post-loop global BA (the reference's loop-BA thread,
@@ -664,7 +677,8 @@ class System:
             else:
                 pose_before = self._state.kf_pose
                 self._state = global_ba.run_global_ba(self.camera, self._state,
-                                                      self.frontend.inv_sigma_sq, anchor_kf=cand)
+                                                      self.frontend.inv_sigma_sq, anchor_kf=cand,
+                                                      mesh=lc.mesh)
                 ones = torch.ones((pose_before.shape[0],), dtype=torch.float32,
                                   device=self.device)
                 self._state = pg.correct_map_structures(
@@ -692,7 +706,10 @@ class System:
     def _advance_deferred_gba(self):
         """Advance the deferred global BA by one bounded step: read the
         copies; enumerate observations and pairs (numpy); one chunk of
-        ``gba_iters_per_chunk`` iterations; or merge into the map."""
+        ``gba_iters_per_chunk`` iterations (on a mesh of several shards,
+        the whole solve of ``gba_iters_per_chunk * gba_num_chunks``
+        iterations at once, as the JAX System runs it); or merge into the
+        map."""
         p = self._pending_gba
         if p is None:
             return
@@ -711,9 +728,12 @@ class System:
         if p["phase"] == "enumerate":
             with self.timer.stage("gba.prepare"):
                 f = p.pop("host")
+                mesh = self.loop_closer.mesh
+                sharded = mesh is not None and mesh.n_shards > 1
                 data = global_ba.prepare_from_arrays(
                     f["kf_valid"], f["kp_valid"], f["lm_idx"], f["lm_valid"], f["xy"], f["xr"],
-                    f["level"], self.frontend.inv_sigma_sq.cpu().numpy(), device=self.device)
+                    f["level"], self.frontend.inv_sigma_sq.cpu().numpy(),
+                    device="cpu" if sharded else self.device)
                 if data.num_obs < global_ba.MIN_OBS:
                     self._pending_gba = None
                     return
@@ -722,12 +742,14 @@ class System:
                 p["cam_fixed"] = torch.arange(K, device=self.device) == p["anchor"]
                 p["carry"] = (p["snap_pose"], p["snap_lm"])
                 p["aux"] = None
-                if K > loop_mod.DENSE_GRAPH_MAX_K:
+                if sharded:
+                    p["aux"] = "mesh"
+                elif K > loop_mod.DENSE_GRAPH_MAX_K:
                     c1, c2, raw_of_comp = global_ba.prepare_chain_pairs(data, f["kf_valid"])
                     c1, c2 = global_ba.pad_chain_pairs(c1, c2)
                     p["aux"] = tuple(torch.from_numpy(a).to(self.device)
                                      for a in (c1, c2, raw_of_comp))
-                p["chunks_left"] = self.gba_num_chunks
+                p["chunks_left"] = 1 if sharded else self.gba_num_chunks
                 p["phase"] = "solve"
             return
         if p["phase"] == "solve":
@@ -735,7 +757,14 @@ class System:
                 cam_pose, lm_pos = p["carry"]
                 args = (self.camera, cam_pose, p["snap_kf_valid"], p["cam_fixed"], lm_pos,
                         p["snap_lm_valid"], p["data"])
-                if p["aux"] is not None:
+                if p["aux"] == "mesh":
+                    shim = st._replace(kf_pose=cam_pose, lm_pos=lm_pos,
+                                       kf_valid=p["snap_kf_valid"], lm_valid=p["snap_lm_valid"])
+                    out = global_ba._run_global_ba_sharded(
+                        self.camera, shim, p["data"], p["cam_fixed"], self.loop_closer.mesh,
+                        self.gba_iters_per_chunk * self.gba_num_chunks)
+                    p["carry"] = (out.kf_pose, out.lm_pos)
+                elif p["aux"] is not None:
                     p["carry"] = global_ba.solve_pcg(*args, *p["aux"],
                                                      num_iters=self.gba_iters_per_chunk)
                 else:

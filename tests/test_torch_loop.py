@@ -15,10 +15,11 @@ Tolerances:
   (20 Gauss-Newton steps of f32 Cholesky or CG, scatter sums in another
   order), and the port's PCG against its dense solve at the JAX test's
   bounds; block cyclic reduction against a dense solve at 1e-3;
-* global BA, dense and PCG: the prepared observation and pair lists
-  exactly equal, poses within 1e-4 of the JAX solver's and landmarks
-  within 1e-3 (ten damped Gauss-Newton steps, f32), the port's PCG
-  against its dense solve at the JAX test's bounds (5e-3, 2e-2).
+* global BA, dense, PCG and on 8 landmark shards: the prepared
+  observation and pair lists exactly equal, poses within 1e-4 of the JAX
+  solver's and landmarks within 1e-3 (ten damped Gauss-Newton steps,
+  f32), the port's PCG against its dense solve at the JAX test's bounds
+  (5e-3, 2e-2).
 """
 
 import dataclasses
@@ -400,6 +401,17 @@ def test_global_ba_pcg_parity():
 
 
 def test_global_ba_mesh_raises():
-    cam, _, tst, _, _ = _ba_state()
-    with pytest.raises(NotImplementedError, match="A17"):
-        tgba.run_global_ba(port_camera(cam), tst, np.ones(8, np.float32), mesh=object())
+    """The mesh solve (ROADMAP A17, which raised until it was ported) on 8
+    landmark shards equals the JAX package's on its 8 CPU devices."""
+    from jax.sharding import Mesh
+
+    from structure_plp_slam_tpu_torch.parallel.distributed_ba import LandmarkMesh
+
+    cam, jst, tst, _, _ = _ba_state()
+    table = np.ones(8, np.float32)
+    sj = jgba.run_global_ba(cam, jst, table, num_iters=6,
+                            mesh=Mesh(np.array(jax.devices()[:8]), ("lm",)))
+    st = tgba.run_global_ba(port_camera(cam), tst, table, num_iters=6,
+                            mesh=LandmarkMesh(["cpu"] * 8))
+    np.testing.assert_allclose(N(st.kf_pose), np.asarray(sj.kf_pose), atol=1e-4)
+    np.testing.assert_allclose(N(st.lm_pos), np.asarray(sj.lm_pos), atol=1e-3)

@@ -78,7 +78,9 @@ def N(t):
 
 
 def _jax_system(cam=JCAM, orb=ORB, **kw):
-    # One device path for the post-loop global BA (the port has no mesh, A17).
+    # The suite's 8 virtual CPU devices would send the JAX System's
+    # post-loop global BA to its mesh; the port's System on the CPU has
+    # one device and solves on it, so both solve on one device.
     return JSystem(JConfig(camera=cam, orb=JOrb(**orb), raw={}), distributed_ba=False, **kw)
 
 
@@ -230,6 +232,7 @@ def _bare_system(cam, state, next_kf):
     slam.pose = (torch.eye(3), torch.zeros(3))
     slam.vel = (torch.eye(3), torch.zeros(3))
     slam._pending_gba = None
+    slam.loop_closer = tloop.LoopCloser(cam)
     slam.gba_iters_per_chunk = 2
     slam.gba_num_chunks = 4
     slam._ind_cache = None

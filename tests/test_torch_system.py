@@ -147,7 +147,7 @@ def test_system_default_device_needs_card(monkeypatch):
         System(_cfg(), **SIZES)
 
 
-PORTED_ITEMS = ("A14", "A15")
+PORTED_ITEMS = ("A14", "A15", "A17")
 _FISHEYE_K = dict(k1=-0.05, k2=0.01, k3=-0.003, k4=0.001)
 
 
@@ -156,6 +156,7 @@ _FISHEYE_K = dict(k1=-0.05, k2=0.01, k3=-0.003, k4=0.001)
     ({}, Camera(setup=CameraSetup.RGBD, model=CameraModel.FISHEYE, **_KW, **_FISHEYE_K), "A15"),
     ({}, Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.EQUIRECTANGULAR, name="eq",
                 cols=512, rows=256, fps=30.0), "A15"),
+    (dict(distributed_ba=True), TCAM, "A17"),
 ])
 def test_unported_options_raise(kwargs, camera, item):
     """Options the port has not yet raise, naming their ROADMAP item.
@@ -163,7 +164,9 @@ def test_unported_options_raise(kwargs, camera, item):
     raised until the slices that ported them: now the line frontend's
     first RGB-D frame creates 3D lines, a fisheye RGB-D System tracks its
     rendered frames, and an equirectangular monocular System (the
-    reference's sphere is monocular) initializes from two views."""
+    reference's sphere is monocular) initializes from two views. The
+    multi-device global BA (A17) raised at its first use: a System asked
+    for it on the CPU (one device) builds no mesh and tracks."""
     args = {**SIZES, **kwargs, "device": "cpu"}
     if item not in PORTED_ITEMS:
         with pytest.raises(NotImplementedError, match=item):
@@ -179,6 +182,12 @@ def test_unported_options_raise(kwargs, camera, item):
                                       i / 30.0)
         assert slam.tracking_state is TrackerState.TRACKING
         assert slam.num_keyframes >= 2
+        return
+    if item == "A17":
+        assert slam.loop_closer.mesh is None
+        img, depth, ts = _frames()[0]
+        slam.feed_RGBD_frame(img, depth, ts)
+        assert slam.tracking_state is TrackerState.TRACKING
         return
     if camera.model is CameraModel.FISHEYE:
         for i, (R, t) in enumerate(poses[:2]):
