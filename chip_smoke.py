@@ -54,6 +54,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    the deferred global BA merged, TRACKING, the last keyframe within
    0.35 m of its ground truth, and the loop fix's fuse call (its own call
    site, loop_fuse) with active rows; its input timed like phase 5's.
+   The fed frame of each loop-fix phase of the return leg and its
+   largest feed time over the median are printed; validate and correct
+   must run on different fed frames (tests/test_loop_latency.py's
+   structural half; its 25x latency bound is reported, not gated);
    Each of 4, 7-12 and 18 runs at the main path's width (but phase 12's
    gated monocular case) with the kernel's
    counts set to 0 before it and read after, and fails unless every
@@ -113,13 +117,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    (same state and anchor): poses within 5e-3, landmarks within 2e-2,
    both timed; (c) the PCG mesh route on testing/large_map.py's K = 1024
    chain map with 2 cm of pose noise: it must move the poses, and agree
-   with the same mesh solve on 4 CPU shards at the same bounds; its
-   distance from the single-device PCG is reported (ROADMAP C42); (b)
-   and (c) both timed and each traced once per solve under
-   torch.profiler;
-19. one JSON line with each path's numbers, one with the rectifier's, one
-   with every kernel's numbers (launches per path added), the card line,
-   and the result line ``{"ok": true, "device": {...}}`` last.
+   at the same bounds with the single-device PCG on the card (the chain
+   preconditioner's blocks at the chain positions, ROADMAP C42) and with
+   the same mesh solve on 4 CPU shards, and with the map in float64 agree
+   with the single-device PCG within 1e-8 (the float32 gap is summation
+   order, ROADMAP C44); (b) and (c) both timed and each traced once per
+   solve under torch.profiler;
+19. the public functions no path calls (public_ops): perspective
+   reproject_stereo, hamming mutual_best_matches (with and without the
+   ratio test), image build_pyramid, orb ic_angles and
+   brief_descriptors, triangulation check_triangulation, each on the
+   card against the same call on the CPU at the main path's shapes:
+   masks, indices and descriptors equal, floats within 1e-5 relative,
+   ic_angles within 1e-5 rad on the same moment maps (from the image,
+   each device's own prefix sums: 1e-3 rad, ROADMAP C8);
+20. one JSON line with each path's numbers, one with the rectifier's, one
+   with phase 19's, one with every kernel's numbers (launches per path
+   added), the card line, and the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 It needs a CUDA device and the repository around it; it never falls back
 to the CPU and imports nothing of JAX.
@@ -1044,8 +1059,28 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768), mesh=None, name="loop", 
                    frames[:24])
     gate(name, r["state"] == TrackerState.TRACKING.value, f"outbound leg ended {r['state']}")
     inject_drift(slam)
+    # tests/test_loop_latency.py's instrument: which fed frame of the
+    # return leg ran which loop-fix phase, and each feed's time.
+    phase_frames, feed_s = [], []
+
+    def spy():
+        if slam._pending_fix is not None:
+            phase_frames.append((len(feed_s), slam._pending_fix["phase"]))
+        type(slam)._advance_pending_fix(slam)  # the class's, as SiteRecorder wraps it
+
+    def timed_feed(s, f):
+        t0 = time.perf_counter()
+        out = feed(s, f)
+        torch.cuda.synchronize()
+        feed_s.append(time.perf_counter() - t0)
+        return out
+
+    slam._advance_pending_fix = spy
     back = SiteRecorder(fm, tracker, mapper, N)
-    r2 = drive_path(f"{name}_back", fm, back, slam, feed, frames[24:])
+    r2 = drive_path(f"{name}_back", fm, back, slam, timed_feed, frames[24:])
+    del slam._advance_pending_fix
+    med_s = float(np.median(feed_s))
+    worst_over_median = float(np.max(feed_s)) / med_s
     st = slam.state
     kf_ts = st.kf_timestamp.cpu().numpy()
     last = int(np.argmax(kf_ts * st.kf_valid.cpu().numpy()))
@@ -1074,6 +1109,9 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768), mesh=None, name="loop", 
         "loop_fuse_active_rows": active,
         "loop_stage_median_ms": {k: timing[k]["median_ms"] for k in stages if k in timing},
         "loop_stage_count": {k: timing[k]["count"] for k in stages if k in timing},
+        "loopfix_phase_frames": phase_frames,
+        "feed_median_s": med_s,
+        "feed_max_over_median": worst_over_median,
     }
     print(f"path {name}: {run['frames']} frames at {run['frames_per_s']:.3f} frames/s; "
           f"{slam.loop_closer.num_loops_closed} loops closed {run['gates']['loop_edges']}; "
@@ -1085,6 +1123,14 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768), mesh=None, name="loop", 
         if k in timing:
             print(f"path {name} stage {k}: count {timing[k]['count']} median "
                   f"{timing[k]['median_ms']:.3f} ms max {timing[k]['max_ms']:.3f} ms")
+    print(f"path {name}: loop-fix phases by fed frame of the return leg {phase_frames}; "
+          f"largest feed {worst_over_median:.2f}x the median {med_s:.3f} s "
+          f"(tests/test_loop_latency.py's bound 25x, reported); {card_line()}")
+    phases_run = {p for _, p in phase_frames}
+    gate(name, {"validate", "correct"} <= phases_run
+         and len({i for i, _ in phase_frames}) >= 2,
+         f"the loop fix's validate and correct did not run on different fed frames: "
+         f"{phase_frames}")
     gate(name, slam.loop_closer.num_loops_closed >= 1, "no loop closed")
     gate(name, err < 0.35, f"last keyframe {err} m from its ground truth")
     gate(name, run["gates"]["gba_adopt_count"] >= 1, "the deferred global BA never merged")
@@ -1095,6 +1141,7 @@ def loop_path(fm, cam, cfg, N, capacities=(256, 32768), mesh=None, name="loop", 
 
 MESH_SHARDS = 4  # phase 18: landmark shards on cuda:0
 MESH_BOUNDS = (5e-3, 2e-2)  # tests/test_distributed_ba.py's: poses, landmarks
+F64_BOUND = 1e-8  # phase 18 (c) in float64 (the CPU's gap: ~6e-12, sum_order.py)
 
 
 @contextlib.contextmanager
@@ -1185,6 +1232,24 @@ def mesh_against_single(name, cam, state, table, anchor, mesh, num_iters=10, cpu
     return res
 
 
+def pcg_gap_f64(cam, state, table, mesh):
+    """Phase 18 (c)'s two PCG solves again with the map's poses and
+    landmarks in float64: the float32 gap between the mesh and one device
+    is summation order (ROADMAP C44) only if they agree to rounding here."""
+    from structure_plp_slam_tpu_torch.models import global_ba
+
+    st = state._replace(kf_pose=state.kf_pose.double(), lm_pos=state.lm_pos.double())
+    one, out = (global_ba.run_global_ba(cam, st, table, anchor_kf=0, num_iters=2, mesh=m)
+                for m in (None, mesh))
+    res = {"max_pose_diff_f64": float((out.kf_pose - one.kf_pose)[st.kf_valid].abs().max()),
+           "max_landmark_diff_f64": float((out.lm_pos - one.lm_pos)[st.lm_valid].abs().max()),
+           "dtype_f64": str(out.kf_pose.dtype)}
+    print(f"mesh solve mesh (c) in float64: {mesh.n_shards} shards against one device: poses "
+          f"{res['max_pose_diff_f64']:.3e}, landmarks {res['max_landmark_diff_f64']:.3e} "
+          f"({res['dtype_f64']}; bound {F64_BOUND:g})")
+    return res
+
+
 def mesh_paths(fm, cam, cfg, N, device="cuda"):
     """Phase 18: the landmark-sharded global BA. (a) phase 11's loop path
     with ``loop_closer.mesh`` = 4 shards on cuda:0 (and, with several
@@ -1194,11 +1259,10 @@ def mesh_paths(fm, cam, cfg, N, device="cuda"):
     host syncs per mesh solve. (b) the dense mesh solve on the map (a)
     leaves against the single-device solve, same anchor. (c) the PCG mesh
     route on testing/large_map.py's K = 1024 chain map, its poses
-    perturbed, against the same mesh solve on CPU shards; its distance
-    from the single-device PCG reported (ROADMAP C42). ``device="cpu"``
-    rehearses the phase on the
-    CPU (with torch.cuda's synchronize, events and sync debug mode
-    stubbed by the caller)."""
+    perturbed, against the single-device PCG (ROADMAP C42), the same mesh
+    solve on CPU shards, and the single-device PCG in float64 (C44).
+    ``device="cpu"`` rehearses the phase on the CPU (with torch.cuda's
+    synchronize, events and sync debug mode stubbed by the caller)."""
     from structure_plp_slam_tpu_torch.parallel.distributed_ba import LandmarkMesh
     from structure_plp_slam_tpu_torch.testing.large_map import build_large_map
 
@@ -1235,25 +1299,124 @@ def mesh_paths(fm, cam, cfg, N, device="cuda"):
 
     # (c) the PCG route past K = 512, on the K = 1024 chain map with 2 cm of
     # noise on every pose but the anchor's (as built, the map is at its
-    # optimum and no solve moves it). The mesh PCG keeps the JAX package's
-    # chain preconditioner, whose blocks sit at the wrong chain positions
-    # (ROADMAP C42), so it is held against the same mesh solve on CPU
-    # shards; its distance from the single-device PCG is reported.
+    # optimum and no solve moves it): held against the single-device PCG
+    # (the chain preconditioner's blocks at the chain positions, ROADMAP
+    # C42) and against the same mesh solve on CPU shards.
     mesh = meshes["mesh"]
     lcam, state, _ = build_large_map(np.random.default_rng(0), device=device)
     g = torch.Generator(device=device).manual_seed(0)
     pose = state.kf_pose.clone()
     pose[1:, :, 3] += torch.randn(pose.shape[0] - 1, 3, device=device, generator=g) * 0.02
-    r = mesh_against_single("mesh (c)", lcam, state._replace(kf_pose=pose),
-                            torch.ones(8, device=device), 0, mesh, num_iters=2,
-                            cpu_mesh=LandmarkMesh(["cpu"] * MESH_SHARDS))
+    table = torch.ones(8, device=device)
+    r = mesh_against_single("mesh (c)", lcam, state._replace(kf_pose=pose), table, 0, mesh,
+                            num_iters=2, cpu_mesh=LandmarkMesh(["cpu"] * MESH_SHARDS))
+    r.update(pcg_gap_f64(lcam, state._replace(kf_pose=pose), table, mesh))
+    gate("mesh", r["max_pose_diff_f64"] < F64_BOUND and r["max_landmark_diff_f64"] < F64_BOUND,
+         f"PCG mesh solve off the single-device PCG in float64: {r}")
     gate("mesh", r["mesh_moved_poses_by"] > 0.01,
          f"the PCG mesh solve moved the perturbed poses by {r['mesh_moved_poses_by']} m")
+    gate("mesh", r["max_pose_diff"] < MESH_BOUNDS[0] and r["max_landmark_diff"] < MESH_BOUNDS[1],
+         f"PCG mesh solve off the single-device PCG on the card: {r}")
     gate("mesh", r["max_pose_diff_cpu_mesh"] < MESH_BOUNDS[0]
          and r["max_landmark_diff_cpu_mesh"] < MESH_BOUNDS[1],
          f"PCG mesh solve on the card off the same solve on the CPU: {r}")
     runs["mesh"]["mesh_solves"]["pcg"] = r
     return runs
+
+
+def public_ops(cam, frame, device="cuda"):
+    """Phase 19: the port's public functions that no path calls, each on
+    ``device`` against the same call on the CPU, at the main path's
+    shapes (``frame``: a 640x480 image of its sequence; 1000 keypoints;
+    8192 points, stage 2's rows). Masks, indices and descriptors must be
+    equal; floats within 1e-5 relative to max(|x|, 1); ic_angles within
+    1e-5 rad on the same moment maps and, from the image (each device's
+    own prefix sums, ROADMAP C8), within 1e-3 rad. Returns each check's
+    largest difference."""
+    from structure_plp_slam_tpu_torch.camera import perspective
+    from structure_plp_slam_tpu_torch.ops import hamming, image, orb, triangulation
+
+    rng = np.random.default_rng(19)
+    res = {}
+
+    def both(name, fn, *args, exact=True, atol=None, **kw):
+        """``fn`` on the CPU and on ``device`` with the same inputs; every
+        output compared (exact, within ``atol``, or within 1e-5 relative
+        to max(|x|, 1))."""
+        host = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        card = [a.to(device) if torch.is_tensor(a) else a for a in args]
+        outs = fn(*host, **kw), fn(*card, **kw)
+        outs = [o if isinstance(o, (tuple, list)) else (o,) for o in outs]
+        err = 0.0
+        for c, d in zip(*outs, strict=True):
+            d = d.cpu()
+            if c.shape != d.shape or c.dtype != d.dtype:
+                raise AssertionError(f"public op {name}: {c.shape} {c.dtype} on the CPU, "
+                                     f"{d.shape} {d.dtype} on the card")
+            if exact:
+                if not torch.equal(c, d):
+                    raise AssertionError(f"public op {name}: {int((c != d).sum())} entries "
+                                         f"differ between the card and the CPU")
+                continue
+            diff = (d - c).abs()
+            scale = torch.ones_like(c) if atol is not None else c.abs().clamp(min=1.0)
+            limit = atol if atol is not None else 1e-5
+            worst = float((diff / scale).max().item()) if c.numel() else 0.0
+            if not worst <= limit:
+                raise AssertionError(f"public op {name}: card off the CPU by {worst:.3e} "
+                                     f"(bound {limit:.0e})")
+            err = max(err, float(diff.max().item()) if c.numel() else 0.0)
+        res[name] = err
+        print(f"public op {name}: card == CPU ({'exact' if exact else f'max abs diff {err:.3e}'})")
+
+    H, W = cam.rows, cam.cols
+    img = torch.from_numpy(np.ascontiguousarray(frame, dtype=np.float32))
+    pts = torch.from_numpy(np.stack([rng.uniform(-3, 3, 8192), rng.uniform(-2, 2, 8192),
+                                     rng.uniform(0.3, 12, 8192)], 1).astype(np.float32))
+    both("reproject_stereo", lambda p: perspective.reproject_stereo(cam, p), pts, exact=False)
+
+    a = torch.from_numpy(rng.integers(-2**31, 2**31, (1024, 8), dtype=np.int64).astype(np.int32))
+    flip = torch.from_numpy(rng.integers(-2**31, 2**31, (1000, 8), dtype=np.int64)
+                            .astype(np.int32)) & 0x01010101
+    b = a[torch.from_numpy(rng.permutation(1024)[:1000])] ^ flip
+    b[900:950] = b[850:900]  # ties: the lower index wins
+    dist = hamming.distance_matrix(a, b, torch.from_numpy(rng.uniform(size=1024) < 0.9),
+                                   torch.from_numpy(rng.uniform(size=1000) < 0.9))
+    for max_dist, ratio in ((50, None), (50, 0.8), (1024, None)):
+        both(f"mutual_best_matches max_dist={max_dist} ratio={ratio}",
+             lambda d: hamming.mutual_best_matches(d, max_dist, ratio), dist)
+
+    both("build_pyramid 8 levels x1.2", lambda im: image.build_pyramid(im, 8, 1.2), img,
+         exact=False)
+
+    m = tuple(t.clone() for t in orb.ic_moment_maps(img))
+    xy = torch.from_numpy(np.stack([rng.uniform(orb.EDGE_MARGIN, W - orb.EDGE_MARGIN, 1000),
+                                    rng.uniform(orb.EDGE_MARGIN, H - orb.EDGE_MARGIN, 1000)],
+                                   1).astype(np.float32))
+    both("ic_angles (same moment maps)", lambda im, k, m10, m01: orb.ic_angles(
+        im, k, moments=(m10, m01)), img, xy, *m, exact=False, atol=1e-5)
+    both("ic_angles (each device's moment maps)", orb.ic_angles, img, xy, exact=False,
+         atol=1e-3)
+    both("brief_descriptors", orb.brief_descriptors, image.gaussian_blur(img), xy,
+         orb.ic_angles(img, xy, moments=m))
+
+    X = np.stack([rng.uniform(-3, 3, 1000), rng.uniform(-2, 2, 1000), rng.uniform(0.5, 12, 1000)],
+                 1)
+    X[:100, 2] *= -1.0  # behind camera 1
+    ang = 0.03
+    R21 = np.array([[np.cos(ang), 0.0, np.sin(ang)], [0.0, 1.0, 0.0],
+                    [-np.sin(ang), 0.0, np.cos(ang)]])
+    t21 = np.array([-0.3, 0.01, 0.02])
+    X2 = X @ R21.T + t21
+    X2[100:200] += rng.normal(size=(100, 3)) * 0.5  # bearings off the rays
+    b1 = X / np.linalg.norm(X, axis=1, keepdims=True)
+    b2 = X2 / np.linalg.norm(X2, axis=1, keepdims=True)
+    tri = [torch.from_numpy(np.asarray(v, np.float32)) for v in (X, b1, b2, R21, t21)]
+    both("check_triangulation", triangulation.check_triangulation, *tri)
+    ok = triangulation.check_triangulation(*tri)
+    res["check_triangulation_accepted"] = int(ok.sum())
+    gate("public_ops", 0 < int(ok.sum()) < 900, f"check_triangulation accepted {int(ok.sum())}")
+    return res
 
 
 def line_z(slam):
@@ -2236,11 +2399,15 @@ def main():
     # ---- 18. the landmark-sharded global BA ---------------------------------
     runs.update(mesh_paths(fm, cam, cfg, N))
     phase_done("18")
+
+    # ---- 19. the public functions no path calls ------------------------------
+    ops = public_ops(cam, frames[0][0])
+    phase_done("19")
     for k in kernels:
         site = k["name"].split("@")[1]
         k["launches_by_path"] = {p: r["site_launches"][site] for p, r in runs.items()}
 
-    # ---- 19. result lines ------------------------------------------------
+    # ---- 20. result lines ------------------------------------------------
     paths = {p: {key: r[key] for key in ("frames", "tracked", "frames_per_s", "state",
                                          "keyframes", "landmarks", "relocalizations",
                                          "launches", "max_abs_err", "stage_median_ms",
@@ -2250,6 +2417,7 @@ def main():
              for p, r in runs.items()}
     print(json.dumps({"paths": paths}))
     print(json.dumps({"rectify_fisheye": rectify}))
+    print(json.dumps({"public_ops": ops}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,14 @@ def project_jacobian(camera, points_cam):
     return torch.stack([row_u, row_v], dim=-2)
 
 
+def reproject_stereo(camera, points_cam):
+    """``project`` plus the right image's x coordinate,
+    ``x_right = u - fx * baseline / z``: (uv ``[N, 2]``, x_right ``[N]``,
+    depth ``[N]``)."""
+    uv, z = project(camera, points_cam)
+    return uv, uv[..., 0] - camera.focal_x_baseline / _safe_z(z), z
+
+
 def in_image(camera, uv, margin: float = 0.0):
     return (
         (uv[..., 0] >= margin)

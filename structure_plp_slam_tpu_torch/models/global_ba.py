@@ -327,6 +327,21 @@ def prepare_chain_pairs(data: GlobalBAData, kf_valid):
     return o1[sel], o2[sel], raw_of_comp
 
 
+def chain_positions(obs_cam, chain_o1, raw_of_comp):
+    """Each chain pair's chain position, that of its first keyframe
+    (``comp_of_cam[obs_cam[o1]]``): where the PCG preconditioner sums its
+    block. Padding rows (o1 < 0) and pairs whose first keyframe is on no
+    chain get K, which ``_chain_blocks`` drops."""
+    K = raw_of_comp.shape[0]
+    dev = raw_of_comp.device
+    comp_ok = raw_of_comp >= 0
+    comp_of_cam = torch.full((K + 1,), K, dtype=torch.int64, device=dev)
+    comp_of_cam[torch.where(comp_ok, raw_of_comp, K)] = torch.where(
+        comp_ok, torch.arange(K, device=dev), K)
+    pos = comp_of_cam[obs_cam[torch.clamp(chain_o1, 0, obs_cam.shape[0] - 1)]]
+    return torch.where(chain_o1 >= 0, pos, K)
+
+
 def pad_chain_pairs(c1, c2):
     """Pad the chain-pair lists to a power-of-two bucket (>= 1024) with -1
     rows, which ``solve_pcg`` drops: the JAX package's one padding rule
@@ -354,12 +369,7 @@ def solve_pcg(camera, cam_pose0, cam_valid, cam_fixed, lm_pos0, lm_valid, data: 
     comp_idx = torch.clamp(raw_of_comp, 0, K - 1)
     free = (~cam_fixed) & cam_valid
     free_f = free.to(torch.float32)
-    # comp_of_cam: keyframe slot -> chain position; a chain pair sits at
-    # its first keyframe's position.
-    comp_of_cam = torch.zeros((K + 1,), dtype=torch.int64, device=dev)
-    comp_of_cam[torch.where(comp_ok, comp_idx, K)] = torch.where(
-        comp_ok, torch.arange(K, device=dev), 0)
-    chain_pos = comp_of_cam[data.obs_cam[torch.clamp(chain_o1, 0, data.obs_cam.shape[0] - 1)]]
+    chain_pos = chain_positions(data.obs_cam, chain_o1, raw_of_comp)
     cam_pose, lm_pos = cam_pose0, lm_pos0
     for _ in range(num_iters):
         U_o, Hcc, bc, Hll_inv, bl = _normal_blocks(camera, cam_pose, lm_pos, data, damping)
@@ -436,7 +446,9 @@ def _run_global_ba_sharded(camera, state, data: GlobalBAData, cam_fixed, mesh, n
     if K > 512:
         sp, obs_map = dba.shard_problem(prob, n, return_map=True, device=dev0)
         c1, c2, raw_of_comp = prepare_chain_pairs(data, state.kf_valid.cpu().numpy())
-        chain = dba.shard_chain_pairs(c1, c2, obs_map, n, device=dev0)
+        pos = chain_positions(data.obs_cam.cpu(), torch.from_numpy(c1),
+                              torch.from_numpy(raw_of_comp))
+        chain = dba.shard_chain_pairs(c1, c2, obs_map, n, pos.numpy(), device=dev0)
         comp_ok = torch.from_numpy(raw_of_comp >= 0).to(dev0)
         comp_idx = torch.from_numpy(np.clip(raw_of_comp, 0, K - 1)).to(dev0)
         run = dba.make_distributed_ba_pcg(mesh, camera, num_iters=num_iters)

@@ -37,3 +37,19 @@ def distance_matrix(desc_a, desc_b, valid_a=None, valid_b=None):
     if valid_b is not None:
         d = torch.where(valid_b[None, :], d, HAMMING_MASKED)
     return d
+
+
+def mutual_best_matches(dist, max_dist: int, ratio: float | None = None):
+    """Mutual nearest neighbours of a masked distance matrix ``[N, M]``,
+    with Lowe's ratio test against the second best in the row when
+    ``ratio`` is given. Returns each row's match ``[N]`` (int64, -1 for
+    none); ties go to the lowest index, as ``jnp.argmin``'s."""
+    best_b = torch.argmin(dist, dim=1)
+    best_ab = torch.gather(dist, 1, best_b[:, None])[:, 0]
+    best_a = torch.argmin(dist, dim=0)
+    ok = (best_ab <= max_dist) & (best_a[best_b] == torch.arange(dist.shape[0],
+                                                                  device=dist.device))
+    if ratio is not None:
+        second = torch.min(dist.scatter(1, best_b[:, None], HAMMING_MASKED), dim=1).values
+        ok = ok & (best_ab.to(torch.float32) <= ratio * second.to(torch.float32))
+    return torch.where(ok, best_b, -1)

@@ -82,6 +82,14 @@ def pyramid_shapes(rows: int, cols: int, num_levels: int, scale_factor: float):
     return shapes
 
 
+def build_pyramid(img, num_levels: int, scale_factor: float):
+    """f32 ``[H, W]`` -> one f32 tensor per level, each resized from level
+    0 with the cumulative scale (the frontend paints the same levels into
+    the atlas, :func:`build_atlas`)."""
+    shapes = pyramid_shapes(*img.shape, num_levels, scale_factor)
+    return [img if lv == 0 else resize_bilinear(img, shapes[lv]) for lv in range(num_levels)]
+
+
 ATLAS_GAP = 24  # inter-level padding: > IC-angle patch radius (15) + blur
 
 

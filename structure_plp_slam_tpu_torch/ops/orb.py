@@ -82,6 +82,18 @@ def ic_moment_maps(img):
     return m10, m01
 
 
+def ic_angles(img, xy, moments=None):
+    """Intensity-centroid orientations ``[K]`` of keypoints ``xy [K, 2]``:
+    atan2(m01, m10) of the radius-15 patch, read from the dense moment
+    maps (:func:`ic_moment_maps`, or ``moments`` when given) at the
+    truncated, clamped pixel."""
+    m10, m01 = ic_moment_maps(img) if moments is None else moments
+    H, W = img.shape
+    xs = torch.clamp(xy[:, 0].to(torch.int64), 0, W - 1)
+    ys = torch.clamp(xy[:, 1].to(torch.int64), 0, H - 1)
+    return torch.atan2(m01[ys, xs], m10[ys, xs])
+
+
 def _brief_sample_coords(xy, angles):
     """Rotated BRIEF sample coordinates: two ``[K, 256]`` (x, y) pairs.
     ``torch.round`` rounds half to even, as ``jnp.round`` does."""
@@ -111,6 +123,19 @@ def pack_bits(bits):
     )
     words = torch.sum(b * weights, dim=-1)  # [K, 8] in [0, 2^32)
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def brief_descriptors(blurred, xy, angles):
+    """Rotated BRIEF descriptors ``[K, 8]`` int32 of keypoints on one
+    blurred level: the pattern rotated by each keypoint's angle, the
+    samples clamped to the image."""
+    H, W = blurred.shape
+    (x0, y0), (x1, y1) = _brief_sample_coords(xy, angles)
+
+    def sample(rx, ry):
+        return blurred[torch.clamp(ry, 0, H - 1), torch.clamp(rx, 0, W - 1)]
+
+    return pack_bits(sample(x0, y0) < sample(x1, y1))
 
 
 def brief_descriptors_pyramid(blur_flat, level_shapes, level_offsets,

@@ -57,3 +57,21 @@ def rays_parallax_cos(bear_1, bear_2, R_21):
     """cos of the ray parallax angle between correspondences."""
     b1_in_2 = torch.einsum("...ij,...nj->...ni", R_21, bear_1)
     return torch.sum(b1_in_2 * bear_2, dim=-1)
+
+
+def check_triangulation(pts_c1, bear_1, bear_2, R_21, t_21, *, reproj_thr_sq=5.99,
+                        min_parallax_cos=0.9998):
+    """Checks after triangulation, ``[N]`` bool: positive depth in both
+    views, each point's ray within cos 0.9998 of its bearing, and a
+    parallax cosine below ``min_parallax_cos`` (``reproj_thr_sq`` is
+    unused, as in the JAX package)."""
+    pts_c2 = torch.einsum("...ij,...nj->...ni", R_21, pts_c1) + t_21[..., None, :]
+    depth_ok = (pts_c1[..., 2] > 1e-6) & (pts_c2[..., 2] > 1e-6)
+
+    def cos_to(pts, bear):
+        d = pts / torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True), min=1e-12)
+        return torch.sum(d * bear, dim=-1)
+
+    reproj_ok = (cos_to(pts_c1, bear_1) > 0.9998) & (cos_to(pts_c2, bear_2) > 0.9998)
+    parallax_ok = rays_parallax_cos(bear_1, bear_2, R_21) < min_parallax_cos
+    return depth_ok & reproj_ok & parallax_ok

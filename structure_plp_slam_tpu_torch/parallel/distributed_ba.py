@@ -134,7 +134,7 @@ def shard_problem(prob, n_shards: int, return_map: bool = False, device=None):
     owner = np.arange(M) % n_shards
     local_id = np.arange(M) // n_shards
     flat_lm = torch.from_numpy(owner * M_shard + local_id).to(dev)
-    lm_pos = torch.zeros((n_shards * M_shard, 3), dtype=torch.float32, device=dev)
+    lm_pos = torch.zeros((n_shards * M_shard, 3), dtype=prob.lm_pos.dtype, device=dev)
     lm_pos[flat_lm] = prob.lm_pos.to(dev)
     lm_valid = torch.zeros((n_shards * M_shard,), dtype=torch.bool, device=dev)
     lm_valid[flat_lm] = prob.lm_valid.to(dev)
@@ -305,20 +305,22 @@ def make_distributed_ba(mesh: LandmarkMesh, camera, *, num_iters: int = 10,
     return run
 
 
-def shard_chain_pairs(c1, c2, obs_owner_map, n_shards: int, device="cpu"):
+def shard_chain_pairs(c1, c2, obs_owner_map, n_shards: int, chain_pos, device="cpu"):
     """Map the global chain-pair observation indices
-    (``global_ba.prepare_chain_pairs``) into the sharded layout.
-    ``obs_owner_map``: ``[O, 2]`` (shard, slot) of every global
-    observation (:func:`shard_problem` with ``return_map=True``). Both
-    members of a chain pair observe one landmark, so they live on one
-    shard. Returns ``(o1, o2, cpos)``: flat ``[n_shards * P_shard]`` local
-    slots and each pair's position in the chain-pair list (as the JAX
-    package computes it; ROADMAP C42), -1 padded, on ``device``."""
+    (``global_ba.prepare_chain_pairs``) and their chain positions
+    (``global_ba.chain_positions``, where the single-device ``solve_pcg``
+    puts each pair's block; the JAX package gives the pair's index in the
+    list there, ROADMAP C42) into the sharded layout. ``obs_owner_map``:
+    ``[O, 2]`` (shard, slot) of every global observation
+    (:func:`shard_problem` with ``return_map=True``). Both members of a
+    chain pair observe one landmark, so they live on one shard. Returns
+    ``(o1, o2, cpos)``: flat ``[n_shards * P_shard]`` local slots and
+    chain positions, -1 padded, on ``device``."""
     c1 = np.asarray(c1)
     c2 = np.asarray(c2)
     live = c1 >= 0
     c1l, c2l = c1[live], c2[live]
-    pos_global = np.nonzero(live)[0]
+    pos = np.asarray(chain_pos)[live]
     sh = obs_owner_map[c1l, 0]
     s1 = obs_owner_map[c1l, 1]
     s2 = obs_owner_map[c2l, 1]
@@ -334,7 +336,7 @@ def shard_chain_pairs(c1, c2, obs_owner_map, n_shards: int, device="cpu"):
     slot = np.arange(len(shs)) - first[shs]
     o1[shs, slot] = s1[order]
     o2[shs, slot] = s2[order]
-    cpos[shs, slot] = pos_global[order]
+    cpos[shs, slot] = pos[order]
     return tuple(torch.from_numpy(a.reshape(-1)).to(device) for a in (o1, o2, cpos))
 
 
@@ -347,10 +349,9 @@ def make_distributed_ba_pcg(mesh: LandmarkMesh, camera, *, num_iters: int = 10,
     cyclic reduction) is factored on every device from the summed block
     diagonal and chain blocks. The CG state is replicated; every device
     runs the same scalar recurrence (``pose_graph.cg_step``). Each chain
-    block goes to ``chain_pos``; :func:`shard_chain_pairs` gives the JAX
-    package's pair index there, not the chain position, so the
-    preconditioner holds the wrong blocks and the solve departs from the
-    one-device PCG (ROADMAP C42). Returns
+    block is summed at its chain position ``chain_pos``
+    (:func:`shard_chain_pairs`), as in the single-device ``solve_pcg``, so
+    the preconditioner is that solve's. Returns
     ``run(sp, chain_o1, chain_o2, chain_pos, comp_idx, comp_ok)``."""
 
     def run(sp: ShardedBAProblem, chain_o1, chain_o2, chain_pos, comp_idx, comp_ok):

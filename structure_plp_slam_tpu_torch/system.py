@@ -53,10 +53,9 @@ with more than one visible card, the post-loop global BA runs
 landmark-sharded over all of them (``parallel/distributed_ba``), as the
 JAX System does over ``jax.devices()``. A caller may set
 ``loop_closer.mesh`` to any ``LandmarkMesh`` (several shards on one card,
-or on the CPU). Past K = 512 keyframes the mesh route's PCG keeps the JAX
-package's chain preconditioner, whose blocks sit at the wrong chain
-positions (ROADMAP C42): its poses may end away from the one-device
-solve's.
+or on the CPU). Past K = 512 keyframes the mesh route runs the PCG with
+the one-device solve's chain preconditioner (ROADMAP C42: the JAX
+package's mesh puts those blocks at the pairs' list indices).
 
 I/O and viewers: ``save_map_database`` / ``load_map_database`` write and
 read msgpack snapshots that either package loads (``io/map_io.py``; a

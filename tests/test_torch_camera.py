@@ -32,6 +32,7 @@ from structure_plp_slam_tpu.camera import Camera as JCamera
 from structure_plp_slam_tpu.camera import CameraModel as JModel
 from structure_plp_slam_tpu.camera import CameraSetup as JSetup
 from structure_plp_slam_tpu.camera import base as jcam
+from structure_plp_slam_tpu.camera import perspective as jpersp
 from structure_plp_slam_tpu.ops import rectify as jrectify
 from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
 from structure_plp_slam_tpu_torch.camera import base as tcam
@@ -102,6 +103,26 @@ def test_camera_functions_match_jax(model):
                 == tcam.in_image(tc, uv_t, margin).numpy()).all()
     assert (np.asarray(jcam.cheirality(jc, jnp.asarray(pc)))
             == tcam.cheirality(tc, torch.from_numpy(pc)).numpy()).all()
+
+
+@pytest.mark.parametrize("case", ["random", "test_stereo_reproject"])
+def test_reproject_stereo_matches_jax(case):
+    """``perspective.reproject_stereo`` (uv, right-image x, depth) on the
+    same points in both packages, at RTOL / ATOL; the JAX test's point
+    4 m ahead with fx * baseline = 40 gives a disparity of 10 px."""
+    jc, tc = _cams("perspective", focal_x_baseline=40.0)
+    if case == "random":
+        pc = _points(np.random.default_rng(5), "perspective")
+        pc[:4, 2] = [0.0, 1e-12, -1e-12, -2.0]  # the depth guard and a point behind
+    else:
+        pc = np.array([[0.5, 0.2, 4.0]], np.float32)
+    jout = jpersp.reproject_stereo(jc, jnp.asarray(pc))
+    tout = tpersp.reproject_stereo(tc, torch.from_numpy(pc))
+    for a, b in zip(jout, tout, strict=True):
+        _close(a, b)
+    uv, xr, _ = (t.numpy() for t in tout)
+    if case == "test_stereo_reproject":
+        np.testing.assert_allclose(uv[0, 0] - xr[0], 40.0 / 4.0, rtol=1e-5)
 
 
 def test_camera_cases_on_port():

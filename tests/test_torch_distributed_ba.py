@@ -8,13 +8,19 @@ where the partition is compared. The same numpy-seeded inputs
 
 * ``shard_problem`` and ``shard_chain_pairs``: exactly equal, for 2, 3
   (M not divisible) and 8 shards, but for the pairs of dead observation
-  slots, which the port leaves out (ROADMAP C43);
+  slots, which the port leaves out (ROADMAP C43), and for the chain
+  pairs' positions: the port gives each pair its first keyframe's chain
+  position, where the one-device PCG puts its block, and the JAX package
+  the pair's index in the list (ROADMAP C42). Both mesh PCGs are fed the
+  chain positions;
 * the dense and the PCG mesh solves on the same sharded arrays, and
   ``run_global_ba(mesh=)``: poses within 1e-4 and landmarks within 1e-3
   of JAX's (the bounds of the port's global BA parity,
   tests/test_torch_loop.py), and on the noisy problem of the JAX test
   5e-3 / 2e-2 (its own bounds: f32 sums in another order, amplified over
-  8 damped Gauss-Newton steps);
+  8 damped Gauss-Newton steps), and the port's mesh PCG against the JAX
+  package's one-device PCG on a chain map with 2 cm of pose noise at
+  those bounds;
 * the port copies of tests/test_distributed_ba.py's tests, on the port
   alone, at their bounds;
 * the System's deferred global BA on mesh shards: poses within 1e-4 of
@@ -142,10 +148,24 @@ def test_shard_problem_exact(n):
     st, mt = tdba.shard_problem(_port(sprob, tba.BAProblem), n, return_map=True)
     _assert_partition_equal(st, sj, n)
     assert (mt == mj).all()
-    c1, c2, _ = jgba.prepare_chain_pairs(data, np.asarray(jst.kf_valid))
-    for a, b in zip(tdba.shard_chain_pairs(c1, c2, mt, n),
-                    jdba.shard_chain_pairs(c1, c2, mj, n)):
+    c1, c2, raw = jgba.prepare_chain_pairs(data, np.asarray(jst.kf_valid))
+    obs_cam = np.asarray(data.obs_cam)
+    pos = N(tgba.chain_positions(T(obs_cam), T(c1), T(raw)))
+    o1, o2, cpos = tdba.shard_chain_pairs(c1, c2, mt, n, pos)
+    jo1, jo2, _ = jdba.shard_chain_pairs(c1, c2, mj, n)
+    for a, b in ((o1, jo1), (o2, jo2)):
         assert a.shape == b.shape and (N(a) == np.asarray(b)).all()
+    # The chain positions (C42): each live pair at comp_of_cam[obs_cam[c1]],
+    # laid out as its o1; -1 in the padding rows.
+    comp_of_cam = np.full(len(raw), -1)
+    comp_of_cam[raw[raw >= 0]] = np.nonzero(raw >= 0)[0]
+    live = c1 >= 0
+    want = np.full(cpos.shape, -1)
+    order = np.argsort(mt[c1[live], 0], kind="stable")
+    flat = N(o1) >= 0
+    want[flat] = comp_of_cam[obs_cam[c1[live]]][order]
+    assert cpos.shape == jo1.shape and (N(cpos) == want).all()
+    assert (want[flat] >= 0).all() and len(np.unique(want[flat])) > 1
 
 
 def test_shard_problem_dead_pairs():
@@ -206,9 +226,11 @@ def test_dense_mesh_matches_jax(mesh8, case, atol):
 
 
 def _chain_problem(K):
-    """A forward chain of K keyframes (testing/large_map.py's, small) as
-    the sharded problem and the chain pairs both packages' PCG mesh
-    solves take."""
+    """A forward chain of K keyframes (testing/large_map.py's, small), its
+    poses but the first moved by 2 cm, as the sharded problem and the
+    chain pairs both packages' PCG mesh solves take: JAX's local slots
+    with the port's chain positions (C42). Also returns the prepared
+    observations and the chain's keyframe slots."""
     from structure_plp_slam_tpu_torch.data import map_state as tms
     from tests.test_large_map_loop import _build_large_map
 
@@ -219,21 +241,113 @@ def _chain_problem(K):
     data, prob = _state_problem(jst)
     sp, obs_map = jdba.shard_problem(prob, 8, return_map=True)
     c1, c2, raw = jgba.prepare_chain_pairs(data, np.asarray(jst.kf_valid))
-    chain = jdba.shard_chain_pairs(c1, c2, obs_map, 8)
+    o1, o2, _ = jdba.shard_chain_pairs(c1, c2, obs_map, 8)
+    pos = N(tgba.chain_positions(T(np.asarray(data.obs_cam)), T(c1), T(raw)))
+    cpos = tdba.shard_chain_pairs(c1, c2, obs_map, 8, pos)[2]
+    chain = (o1, o2, jnp.asarray(N(cpos), jnp.int32))
     comp = (jnp.asarray(np.clip(raw, 0, K - 1), jnp.int32), jnp.asarray(raw >= 0))
     tst = tms.from_numpy({f: np.asarray(getattr(jst, f)) for f in jst._fields}, "cpu")
-    return cam, jst, tst, sp, chain, comp
+    return cam, jst, tst, sp, chain, comp, data, raw
 
 
 @pytest.mark.parametrize("K", [12, 32])
 def test_pcg_mesh_matches_jax(mesh8, K):
-    cam, _, _, sp, chain, comp = _chain_problem(K)
+    cam, _, _, sp, chain, comp, _, _ = _chain_problem(K)
     pj, lj = jdba.make_distributed_ba_pcg(mesh8, cam, num_iters=2)(sp, *chain, *comp)
     pt, lt = tdba.make_distributed_ba_pcg(MESH8, port_camera(cam), num_iters=2)(
         _port(sp, tdba.ShardedBAProblem), *(T(np.asarray(a)) for a in chain + comp))
     np.testing.assert_allclose(N(pt), np.asarray(pj), atol=1e-4)
     lv = np.asarray(sp.lm_valid)
     np.testing.assert_allclose(N(lt)[lv], np.asarray(lj)[lv], atol=1e-3)
+
+
+def test_pcg_mesh_matches_single_device_perturbed():
+    """C42: on the K = 32 chain map with 2 cm of pose noise the port's mesh
+    PCG (8 CPU shards, 2 iterations) lands within the mesh bounds of the
+    JAX package's one-device PCG, and the solve moves the poses."""
+    K = 32
+    cam, jst, _, sp, chain, comp, data, raw = _chain_problem(K)
+    pt, lt = tdba.make_distributed_ba_pcg(MESH8, port_camera(cam), num_iters=2)(
+        _port(sp, tdba.ShardedBAProblem), *(T(np.asarray(a)) for a in chain + comp))
+    c1, c2, _ = jgba.prepare_chain_pairs(data, np.asarray(jst.kf_valid))
+    c1, c2 = jgba.pad_chain_pairs(c1, c2)
+    pj, lj = jgba.solve_pcg(cam, jst.kf_pose, jst.kf_valid, jnp.arange(K) == 0, jst.lm_pos,
+                            jst.lm_valid, data, jnp.asarray(c1), jnp.asarray(c2),
+                            jnp.asarray(raw), num_iters=2)
+    kv, lv = np.asarray(jst.kf_valid), np.asarray(jst.lm_valid)
+    assert np.abs(np.asarray(pj) - np.asarray(jst.kf_pose))[kv].max() > 0.01
+    np.testing.assert_allclose(N(pt)[kv], np.asarray(pj)[kv], atol=5e-3)
+    lm = _unshard(N(lt), 8, lv.shape[0])
+    np.testing.assert_allclose(lm[lv], np.asarray(lj)[lv], atol=2e-2)
+
+
+def _perturbed_large_map(rng, dtype=torch.float32):
+    """tests/test_distributed_ba.py's K = 1024 chain map (8 landmarks per
+    keyframe, 32 slots) with 2 cm of noise on every pose but the first,
+    its poses and landmarks in ``dtype``."""
+    from structure_plp_slam_tpu_torch.testing.large_map import build_large_map
+
+    cam, state, _ = build_large_map(rng, K=1024, lm_per_kf=8, N=32, device="cpu")
+    pose = state.kf_pose.clone()
+    pose[1:, :, 3] += T(rng.normal(size=(pose.shape[0] - 1, 3)).astype(np.float32)) * 0.02
+    return cam, state._replace(kf_pose=pose.to(dtype), lm_pos=state.lm_pos.to(dtype))
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_pcg_mesh_matches_single_device_f64(rng, n):
+    """C44: in float64 the mesh PCG on the perturbed K = 1024 chain map
+    lands within 1e-9 of the one-device PCG (both moving the poses by more
+    than 0.01 m), so the mesh bounds' gap in float32 (up to a few mm, the
+    slow test below) is summation order that the weakly tied chain's 40
+    CG steps amplify, and no second difference between the routes."""
+    cam, state = _perturbed_large_map(rng, torch.float64)
+    table = np.ones(8, np.float32)
+    ref = tgba.run_global_ba(cam, state, table, anchor_kf=0, num_iters=2)
+    out = tgba.run_global_ba(cam, state, table, anchor_kf=0, num_iters=2,
+                             mesh=LandmarkMesh(["cpu"] * n))
+    assert ref.kf_pose.dtype == out.kf_pose.dtype == out.lm_pos.dtype == torch.float64
+    kv, lv = N(state.kf_valid), N(state.lm_valid)
+    assert np.abs(N(ref.kf_pose) - N(state.kf_pose))[kv].max() > 0.01
+    np.testing.assert_allclose(N(out.kf_pose)[kv], N(ref.kf_pose)[kv], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(N(out.lm_pos)[lv], N(ref.lm_pos)[lv], rtol=0, atol=1e-9)
+
+
+def test_chain_blocks_reference_departure():
+    """C42 states the reference's fault: at the first linearization of the
+    K = 32 chain map, the chain blocks the port's mesh sums over its 8
+    shards equal the one-device PCG's (1e-5 relative to the largest
+    block), while the JAX package's chain positions (each pair's index in
+    the chain-pair list) put them elsewhere."""
+    K = 32
+    cam, jst, tst, sp, chain, _, _, raw = _chain_problem(K)
+    tcam = port_camera(cam)
+    data = tgba.prepare(tst, np.ones(8, np.float32))
+    free_f = (torch.arange(K) != 0).to(torch.float32) * tst.kf_valid
+    U_o, _, _, Hll_inv, bl = tgba._normal_blocks(tcam, tst.kf_pose, tst.lm_pos, data, 1e-4)
+    UH = tgba._schur_reduction(data, U_o, Hll_inv, bl, K)[1]
+    c1, c2, _ = tgba.prepare_chain_pairs(data, N(tst.kf_valid))
+    single = tgba._chain_blocks(data, U_o, UH, free_f, T(c1), T(c2),
+                                tgba.chain_positions(data.obs_cam, T(c1), T(raw)), K)
+
+    tsp = _port(sp, tdba.ShardedBAProblem)
+    shards, lm = tdba._shards(MESH8, tsp), MESH8.split(tsp.lm_pos)
+    jax_cpos = jdba.shard_chain_pairs(
+        c1, c2, jdba.shard_problem(_state_problem(jst)[1], 8, return_map=True)[1], 8)[2]
+
+    def mesh_blocks(cpos):
+        total = torch.zeros_like(single)
+        pairs = zip(*(MESH8.split(T(np.asarray(a))) for a in (chain[0], chain[1], cpos)))
+        for s, lm_s, (o1, o2, cp) in zip(shards, lm, pairs):
+            Us, _, _, Hs, bs = tgba._normal_blocks(tcam, s.cam_pose, lm_s, s.data, 1e-4,
+                                                   live=s.live)
+            UHs = tgba._schur_reduction(s.data, Us, Hs, bs, K)[1]
+            total += tgba._chain_blocks(s.data, Us, UHs, free_f, o1, o2, cp, K)
+        return total
+
+    scale = float(single.abs().max())
+    assert scale > 0
+    np.testing.assert_allclose(N(mesh_blocks(chain[2])), N(single), rtol=0, atol=1e-5 * scale)
+    assert float((mesh_blocks(jax_cpos) - single).abs().max()) > 0.1 * scale
 
 
 def test_run_global_ba_mesh_matches_jax(mesh8):
@@ -342,15 +456,16 @@ def test_sharded_converges():
 @pytest.mark.slow
 def test_sharded_pcg_matches_single_device_large_k(rng):
     """tests/test_distributed_ba.py's K = 1024 chain map (the PCG route
-    past K = 512): the port's mesh solve against its single-device PCG,
-    at the JAX test's bounds."""
-    from structure_plp_slam_tpu_torch.testing.large_map import build_large_map
-
-    cam, state, _ = build_large_map(rng, K=1024, lm_per_kf=8, N=32, device="cpu")
+    past K = 512), its poses but the first moved by 2 cm (as built the map
+    is at its optimum and no solve moves it): the port's mesh solve
+    against its single-device PCG, at the JAX test's bounds (C42)."""
+    cam, state = _perturbed_large_map(rng)
+    pose = state.kf_pose
     table = np.ones(8, np.float32)
     ref = tgba.run_global_ba(cam, state, table, anchor_kf=0, num_iters=2)
     out = tgba.run_global_ba(cam, state, table, anchor_kf=0, num_iters=2, mesh=MESH8)
     kv, lv = N(state.kf_valid), N(state.lm_valid)
+    assert np.abs(N(ref.kf_pose) - N(pose))[kv].max() > 0.01
     np.testing.assert_allclose(N(out.kf_pose)[kv], N(ref.kf_pose)[kv], atol=5e-3)
     np.testing.assert_allclose(N(out.lm_pos)[lv], N(ref.lm_pos)[lv], atol=2e-2)
 
