@@ -15,20 +15,20 @@ from structure_plp_slam_tpu_torch.data import map_state as ms
 
 
 def grow(state: ms.MapState, *, grow_kf: bool = False, grow_lm: bool = False,
-         grow_ln: bool = False, grow_pl: bool = False) -> ms.MapState:
+         grow_ln: bool = False, grow_pl: bool = False, factor: int = 2) -> ms.MapState:
     """A state with the selected capacities (keyframes, landmarks, line
-    landmarks, planes) doubled; existing slots keep their indices and
-    contents."""
+    landmarks, planes) multiplied by ``factor``; existing slots keep their
+    indices and contents."""
     K, N = state.kf_pose.shape[0], state.kf_xy.shape[1]
     L, L2, P = state.lm_pos.shape[0], state.ln_pluck.shape[0], state.pl_coef.shape[0]
     new = ms.create(
-        max_keyframes=2 * K if grow_kf else K,
+        max_keyframes=K * factor if grow_kf else K,
         max_kps=N,
-        max_landmarks=2 * L if grow_lm else L,
+        max_landmarks=L * factor if grow_lm else L,
         max_lines_per_kf=state.kf_seg.shape[1],
-        max_line_landmarks=2 * L2 if grow_ln else L2,
+        max_line_landmarks=L2 * factor if grow_ln else L2,
         line_desc_dim=state.ln_desc.shape[1],
-        max_planes=2 * P if grow_pl else P,
+        max_planes=P * factor if grow_pl else P,
         device=state.device,
     )
     out = {}

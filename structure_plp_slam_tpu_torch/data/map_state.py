@@ -94,8 +94,10 @@ class MapState(NamedTuple):
 
 def create(max_keyframes: int = 256, max_kps: int = 1024, max_landmarks: int = 16384,
            max_lines_per_kf: int = 64, max_line_landmarks: int = 2048,
-           line_desc_dim: int = LINE_DESC_DIM, max_planes: int = 64, *, device):
+           line_desc_dim: int | None = None, max_planes: int = 64, *, device):
     K, N, L = max_keyframes, max_kps, max_landmarks
+    if line_desc_dim is None:
+        line_desc_dim = LINE_DESC_DIM
     ML, L2, LD, P = max_lines_per_kf, max_line_landmarks, line_desc_dim, max_planes
     f32 = dict(dtype=torch.float32, device=device)
     i64 = dict(dtype=torch.int64, device=device)

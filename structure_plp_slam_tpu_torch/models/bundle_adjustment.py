@@ -144,11 +144,15 @@ def _line_chi2(camera, lines, cam_pose, ln_U, ln_w):
 
 
 def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: int = 15,
-             cull_at_iters: tuple = (5,), damping: float = 1e-4) -> BAResult:
+             cull_at_iters: tuple = (5,), damping: float = 1e-4,
+             obs_grid: bool = False) -> BAResult:
     """Damped Gauss-Newton with Schur elimination on a BA window, with
     the line terms of ``lines`` when given. ``cull_at_iters``: iterations
     after which observations are chi2-gated (the reference's two-phase
-    structure)."""
+    structure). ``obs_grid`` is the JAX package's promise that the
+    observations form a dense [C, O/C] grid, which there picks a cheaper
+    contraction; the port sums by (landmark, camera) bin whatever the
+    layout, so the promise leaves the solve as it is."""
     C = prob.cam_pose.shape[0]
     M = prob.lm_pos.shape[0]
     dev = prob.cam_pose.device

@@ -76,18 +76,20 @@ class Frontend:
         m = torch.as_tensor(mask, device=self.device) != 0
         return m if self._rect_mask is None else (m & self._rect_mask)
 
-    def mono(self, img_gray, mask=None):
-        """uint8/f32 [H, W] grayscale -> feature dict (mono)."""
+    def mono(self, img_gray, key=None, mask=None):
+        """uint8/f32 [H, W] grayscale -> feature dict (mono). ``key`` goes
+        to the line detector, as in the JAX package (which draws nothing
+        from it)."""
         out = self._base(img_gray, self._eff_mask(mask))
         n = self.pad_to
         out["xr"] = torch.full((n,), -1.0, dtype=torch.float32, device=self.device)
         out["depth"] = torch.zeros((n,), dtype=torch.float32, device=self.device)
         out.pop("_xy_raw")
         if self.with_lines:
-            self._lines(img_gray, out)
+            self._lines(img_gray, out, key)
         return out
 
-    def rgbd(self, img_gray, depth, mask=None):
+    def rgbd(self, img_gray, depth, key=None, mask=None):
         """Adds per-keypoint depth sampled from the registered depth map
         and a virtual right-x coordinate (reference frame.cc RGB-D ctor:
         x_right = x - fx*baseline/depth)."""
@@ -105,10 +107,10 @@ class Frontend:
         )
         out["depth"] = torch.where(has_depth, d, torch.zeros_like(d))
         if self.with_lines:
-            self._lines(img_gray, out, depth_map=depth_map)
+            self._lines(img_gray, out, key, depth_map=depth_map)
         return out
 
-    def stereo(self, img_left, img_right, mask=None):
+    def stereo(self, img_left, img_right, key=None, mask=None):
         """Rectified stereo pair: left features plus disparity-derived depth
         (reference frame.cc stereo ctor: ORB on both images, then
         match::stereo). Line endpoint depths come from a row SAD search on
@@ -127,20 +129,21 @@ class Frontend:
         )
         out["xr"], out["depth"] = xr, depth  # -1 / 0 where unmatched
         if self.with_lines:
-            self._lines(gray_l, out, gray_right=gray_r)
+            self._lines(gray_l, out, key, gray_right=gray_r)
         return out
 
-    def _lines(self, img, out, depth_map=None, gray_right=None):
+    def _lines(self, img, out, key=None, depth_map=None, gray_right=None):
         """Attach line-segment features to ``out`` (the line frame ctors,
         frame.h:87-164): detection at two scales, band descriptors and
         endpoint depths, each the median of three samples just inside the
         segment's ends."""
         with self.timer.stage("frontend.lines") if self.timer else contextlib.nullcontext():
-            self._lines_impl(img, out, depth_map, gray_right)
+            self._lines_impl(img, out, key, depth_map, gray_right)
 
-    def _lines_impl(self, img, out, depth_map, gray_right):
+    def _lines_impl(self, img, out, key, depth_map, gray_right):
         gray = image_ops.to_grayscale(img, device=self.device)
-        seg, valid, _ = line_ops.detect_line_segments_multiscale(gray, max_lines=self.max_lines)
+        seg, valid, _ = line_ops.detect_line_segments_multiscale(gray, key,
+                                                                 max_lines=self.max_lines)
         desc = line_ops.line_band_descriptors(gray, seg, valid)
         fracs = self._line_fracs
         xs = seg[None, :, 0] + fracs[:, None] * (seg[None, :, 2] - seg[None, :, 0])

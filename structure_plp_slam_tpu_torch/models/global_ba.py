@@ -38,7 +38,6 @@ from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.ops import lie, robust
 from structure_plp_slam_tpu_torch.utils.types import rdiv
 
-MAX_OBS_PER_LM = 12  # observations per landmark that enter the pair list
 MIN_OBS = 100        # fewer observations than this: no global BA
 
 
@@ -58,7 +57,7 @@ class GlobalBAData(NamedTuple):
     num_pairs: int
 
 
-def prepare(state, inv_sigma_sq_table) -> GlobalBAData:
+def prepare(state, inv_sigma_sq_table, max_obs_per_lm: int = 12) -> GlobalBAData:
     """Enumerate observations and pairs from a MapState (reads it back to
     the host; the System's deferred BA uses :func:`prepare_from_arrays` on
     copies it started earlier)."""
@@ -68,14 +67,15 @@ def prepare(state, inv_sigma_sq_table) -> GlobalBAData:
     return prepare_from_arrays(
         host(state.kf_valid), host(state.kf_kp_valid), host(state.kf_lm_idx),
         host(state.lm_valid), host(state.kf_xy), host(state.kf_xr), host(state.kf_level),
-        host(torch.as_tensor(inv_sigma_sq_table)), device=state.kf_pose.device,
+        host(torch.as_tensor(inv_sigma_sq_table)), max_obs_per_lm=max_obs_per_lm,
+        device=state.kf_pose.device,
     )
 
 
 def prepare_from_arrays(kf_valid, kp_valid, lm_idx, lm_valid, xy, xr, level, table,
-                        device="cpu") -> GlobalBAData:
+                        max_obs_per_lm: int = 12, device="cpu") -> GlobalBAData:
     """Observations and co-observation pairs from host arrays (numpy).
-    Only the first ``MAX_OBS_PER_LM`` observations of a landmark enter the
+    Only the first ``max_obs_per_lm`` observations of a landmark enter the
     pair list; all of them enter Hcc, Hll and b."""
     ks, ns = np.nonzero((lm_idx >= 0) & kp_valid & kf_valid[:, None])
     lms = lm_idx[ks, ns]
@@ -93,7 +93,7 @@ def prepare_from_arrays(kf_valid, kp_valid, lm_idx, lm_valid, xy, xr, level, tab
         change = np.r_[True, lms_s[1:] != lms_s[:-1]]
         group_id = np.cumsum(change) - 1
         rank = np.arange(O) - np.nonzero(change)[0][group_id]
-        keep2 = rank < MAX_OBS_PER_LM
+        keep2 = rank < max_obs_per_lm
         idx = order[keep2]
         gid = group_id[keep2]
         sizes = np.bincount(gid)

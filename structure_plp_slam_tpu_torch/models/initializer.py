@@ -20,9 +20,6 @@ from structure_plp_slam_tpu_torch.ops import matching, ransac
 from structure_plp_slam_tpu_torch.utils import prng
 from structure_plp_slam_tpu_torch.utils.types import nanmedian_mean, rdiv
 
-MIN_TRIANGULATED = 50  # points the chosen pose must triangulate to succeed
-
-
 class MonoInitResult(NamedTuple):
     success: torch.Tensor       # bool
     R_2w: torch.Tensor          # [3,3] pose of frame 2 (frame 1 = identity)
@@ -35,11 +32,12 @@ class MonoInitResult(NamedTuple):
     num_matches: torch.Tensor   # i64 raw area matches (restart-decision input)
 
 
-def try_initialize_mono(camera, feats1, feats2, key, *,
+def try_initialize_mono(camera, feats1, feats2, key, *, min_triangulated: int = 50,
                         coherent: bool = False) -> MonoInitResult:
     """Attempt two-view initialization between two monocular frames
     (perspective.cc:54-122): area matching, H and E estimation, H chosen
-    when ``s_H / (s_H + s_E) > 0.40``, pose by cheirality. ``coherent``
+    when ``s_H / (s_H + s_E) > 0.40``, pose by cheirality; it succeeds
+    when the chosen pose triangulates ``min_triangulated`` points. ``coherent``
     runs the spatially coherent consensus for both races (GC-RANSAC,
     perspective.cc:70-85). An equirectangular camera matches with the u
     window wrapped and takes the essential matrix of its sphere bearings
@@ -74,7 +72,7 @@ def try_initialize_mono(camera, feats1, feats2, key, *,
             Rs_e, ts_e, b1, b2, in_e & has, spherical=True,
             reproj_cos=math.cos(5.0 / camera.focal_like))
         return MonoInitResult(
-            success=count >= MIN_TRIANGULATED, R_2w=R, t_2w=t,
+            success=count >= min_triangulated, R_2w=R, t_2w=t,
             matches=torch.where(good, m12, -1), points_w=pts, point_ok=good,
             num_points=count, used_homography=torch.zeros((), dtype=torch.bool, device=R.device),
             num_matches=torch.sum(has),
@@ -103,7 +101,7 @@ def try_initialize_mono(camera, feats1, feats2, key, *,
 
     R, t, pts, good, count = ransac.select_pose_by_cheirality(Rs, ts, b1, b2, inliers & has)
     return MonoInitResult(
-        success=count >= MIN_TRIANGULATED,
+        success=count >= min_triangulated,
         R_2w=R,
         t_2w=t,
         matches=torch.where(good, m12, -1),
@@ -115,12 +113,13 @@ def try_initialize_mono(camera, feats1, feats2, key, *,
     )
 
 
-def scale_to_median_depth(points_w, point_ok, t_2w, use_dist: bool = False):
-    """Scale the map so the median point depth (in frame 1 = world) is 1
-    (initializer.cc:310-320 scale_map). ``use_dist``: the ray length
+def scale_to_median_depth(points_w, point_ok, t_2w, target: float = 1.0,
+                          use_dist: bool = False):
+    """Scale the map so the median point depth (in frame 1 = world) is
+    ``target`` (initializer.cc:310-320 scale_map). ``use_dist``: the ray length
     replaces z (the equirectangular path, where points surround the
     camera). Returns (points, t, s)."""
     depth = torch.linalg.norm(points_w, dim=-1) if use_dist else points_w[:, 2]
     med = nanmedian_mean(depth, point_ok)
-    s = rdiv(1.0, torch.clamp(med, min=1e-9))
+    s = rdiv(target, torch.clamp(med, min=1e-9))
     return points_w * s, t_2w * s, s

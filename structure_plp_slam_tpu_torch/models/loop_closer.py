@@ -40,9 +40,12 @@ from structure_plp_slam_tpu_torch.utils.types import HostCopy, nonzero_static
 
 _log = logging.getLogger("plpslam.torch.loop_closer")
 
-MIN_CONTINUITY = 3   # consecutive detections of one covisibility cluster
-MIN_INLIERS = 20     # matches, RANSAC inliers and refined inliers a loop needs
-MIN_GAP = 10         # keyframes between loop closures (and from the candidate)
+# LoopCloser's defaults: consecutive detections of one covisibility
+# cluster; matches, RANSAC inliers and refined inliers a loop needs;
+# keyframes between loop closures (and from the candidate).
+MIN_CONTINUITY = 3
+MIN_INLIERS = 20
+MIN_GAP = 10
 MATCH_MAX_HAMMING = 50
 COVIS_NEIGHBOR = 15  # shared landmarks that make two keyframes neighbours
 COVIS_STRONG = 100   # shared landmarks that make a pose-graph edge
@@ -57,7 +60,7 @@ def _match_landmark_pairs(camera, state: ms.MapState, kf1, kf2):
     L = state.lm_pos.shape[0]
     has1 = (state.kf_lm_idx[kf1] >= 0) & state.kf_kp_valid[kf1]
     has2 = (state.kf_lm_idx[kf2] >= 0) & state.kf_kp_valid[kf2]
-    d = matching.distance_matrix_planes(matching.unpack_desc_bits(state.kf_desc[kf1]),
+    d = matching.distance_matrix_mxu(matching.unpack_desc_bits(state.kf_desc[kf1]),
                                         matching.unpack_desc_bits(state.kf_desc[kf2]),
                                         has1, has2)
     best, mutual = matching.mutual_best(d, MATCH_MAX_HAMMING)
@@ -109,10 +112,18 @@ def _pack_detect_arrays(cov, kf, scores, kf_valid):
 
 
 class LoopCloser:
-    def __init__(self, camera, device="cpu"):
+    def __init__(self, camera, max_keyframes: int = 0, *,
+                 min_continuity: int = MIN_CONTINUITY, min_inliers: int = MIN_INLIERS,
+                 min_gap: int = MIN_GAP, device="cpu"):
+        # max_keyframes is accepted as the JAX package accepts it: the
+        # retrieval index is stateless over the MapState and needs no
+        # capacity. The thresholds are read at every call.
         self.camera = camera
         self.device = torch.device(device)
         self.bow = BowIndex()
+        self.min_continuity = min_continuity
+        self.min_inliers = min_inliers
+        self.min_gap = min_gap
         # (covisibility cluster as a frozenset, consecutive detections).
         self._continuity: list = []
         self.last_loop_kf = -999
@@ -130,7 +141,7 @@ class LoopCloser:
         """Start the detection of keyframe ``kf`` and its copy to the host;
         consume it with :meth:`detect_consume` (a keyframe later, in the
         System). None inside the cool-down after a loop closure."""
-        if kf - self.last_loop_kf < MIN_GAP:
+        if kf - self.last_loop_kf < self.min_gap:
             return None
         cov = ms.covisibility_matrix(state, ind)
         packed = _pack_detect_arrays(cov, kf, self.bow.scores_for_slot(state, kf),
@@ -140,10 +151,10 @@ class LoopCloser:
     def detect_consume(self, packed, kf: int) -> Optional[int]:
         """The host half of detection on the ``[K, 3]`` copy: candidates
         score at least the weakest covisible neighbour (and 0.1), are not
-        covisible and are ``MIN_GAP`` keyframes old. A candidate continues
+        covisible and are ``min_gap`` keyframes old. A candidate continues
         a previous detection's cluster when their covisibility sets
         intersect (loop_detector.cc:102-127); a loop fires after
-        ``MIN_CONTINUITY`` in a row. Returns the best-scoring matured
+        ``min_continuity`` in a row. Returns the best-scoring matured
         candidate or None. Only the candidates' covisibility rows are read
         back from the device matrix."""
         copy, cov = packed
@@ -159,7 +170,7 @@ class LoopCloser:
         else:
             min_score = 0.2
         cand_mask = kf_valid & ~covis & (sims >= max(min_score, 0.1))
-        cand_mask[max(0, kf - MIN_GAP):] = False
+        cand_mask[max(0, kf - self.min_gap):] = False
         cands = np.where(cand_mask)[0].tolist()
 
         new_clusters, matured = [], []
@@ -170,7 +181,7 @@ class LoopCloser:
                 np.where((W_rows[row] >= COVIS_NEIGHBOR) & kf_valid)[0].tolist()) | {int(c)}
             prev = max((n for cl, n in self._continuity if cl & cluster), default=0)
             new_clusters.append((cluster, prev + 1))
-            if prev + 1 >= MIN_CONTINUITY:
+            if prev + 1 >= self.min_continuity:
                 matured.append(int(c))
         self._continuity = new_clusters
         if not matured:
@@ -191,7 +202,7 @@ class LoopCloser:
     def validate_consume(self, packed):
         """Gate the packed validation result: (R_21, t_21, s_21) or None."""
         v = packed.numpy()
-        if min(v[0], v[1], v[2]) < MIN_INLIERS:
+        if min(v[0], v[1], v[2]) < self.min_inliers:
             _log.info("loop validation rejected: %d matches, %d RANSAC inliers, %d refined",
                       v[0], v[1], v[2])
             return None

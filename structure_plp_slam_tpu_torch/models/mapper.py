@@ -107,7 +107,7 @@ def triangulate_pair(camera, state: ms.MapState, kf1, kf2, base_lm_slot, enable=
     t_21 = t2 - R_21 @ t1
     E = lie.hat(t_21) @ R_21
 
-    d = matching.distance_matrix_planes(
+    d = matching.distance_matrix_mxu(
         matching.unpack_desc_bits(state.kf_desc[kf1]),
         matching.unpack_desc_bits(state.kf_desc[kf2]),
         free1, free2,
@@ -578,7 +578,7 @@ def local_ba(camera, state: ms.MapState, current_kf, inv_sigma_sq_table, *,
     if with_lines:
         lw, l_safe = _line_window(state, cams, cam_ok, inv_sigma_sq_table, max_lines)
     # 8 damped-GN iterations with the outlier cull after 4.
-    result = ba.ba_solve(camera, prob, lw, num_iters=8, cull_at_iters=(4,))
+    result = ba.ba_solve(camera, prob, lw, obs_grid=True, num_iters=8, cull_at_iters=(4,))
 
     write_cam = (~cam_fixed) & cam_ok
     old_pose = state.kf_pose

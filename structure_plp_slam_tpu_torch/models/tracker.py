@@ -155,7 +155,7 @@ def track_frame(camera, state: ms.MapState, feats, R_pred, t_pred, last_kp_lm,
     valid1 = (last_kp_lm >= 0) & state.lm_valid[ids1]
     desc1 = state.lm_desc[ids1].contiguous()
     d1 = (None if wrap_cols is None else
-          matching.distance_matrix_planes(matching.unpack_desc_bits(desc1), kp_bits,
+          matching.distance_matrix_mxu(matching.unpack_desc_bits(desc1), kp_bits,
                                           valid1, kp_valid))
     # Loose Hamming bound (match::base HAMMING_DIST_THR_HIGH = 100): the
     # spatial window is the primary gate; chi2 in the LM culls mistakes.
@@ -166,7 +166,7 @@ def track_frame(camera, state: ms.MapState, feats, R_pred, t_pred, last_kp_lm,
     # keyframe's landmarks (bow_match_based_track, frame_tracker.cc:127).
     ref_lm_prev = state.kf_lm_idx[prev_ref_kf]
     ref_has = (ref_lm_prev >= 0) & state.kf_kp_valid[prev_ref_kf]
-    d_ref = matching.distance_matrix_planes(
+    d_ref = matching.distance_matrix_mxu(
         kp_bits, matching.unpack_desc_bits(state.kf_desc[prev_ref_kf]), kp_valid, ref_has,
     )
     best_r, ok_r = matching.mutual_best(d_ref, 50)
@@ -216,7 +216,7 @@ def track_frame(camera, state: ms.MapState, feats, R_pred, t_pred, last_kp_lm,
     pred_level2 = matching.predict_scale_level(dist2, dmax2, scale_factor, num_levels)
     kp_free = kp_valid & (kp_lm_1 < 0)
     if wrap_cols is not None:
-        d2 = matching.distance_matrix_planes(matching.unpack_desc_bits(state.lm_desc[ids2]),
+        d2 = matching.distance_matrix_mxu(matching.unpack_desc_bits(state.lm_desc[ids2]),
                                              kp_bits, valid2, kp_valid)
         kp_best2, d_best2 = matching.match_by_projection_precomputed(
             torch.where(kp_free[None, :], d2, HAMMING_MASKED), uv2, pred_level2, cand2,

@@ -78,6 +78,15 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """Whether the native library loads (built first if it is absent)."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 class AsyncSnapshotWriter:
     """Latest-wins background checkpoint writer (atomic rename)."""
 

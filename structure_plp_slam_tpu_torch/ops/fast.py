@@ -42,6 +42,16 @@ def _contiguous_9(flags):
     return torch.any(c9, dim=0)
 
 
+def _ring_sum(x):
+    """Sum over the 16 ring samples ``[16, H, W] -> [H, W]`` left to right,
+    XLA:CPU's order for the reduction; one add per sample, so the card
+    sums in the same order as the CPU."""
+    out = x[0]
+    for i in range(1, x.shape[0]):
+        out = out + x[i]
+    return out
+
+
 def fast_score_map(img, ini_threshold: float, min_threshold: float):
     """Dense FAST-9 response map (0 where not a corner at
     ``min_threshold``; +1e4 where it also passes ``ini_threshold``)."""
@@ -52,9 +62,8 @@ def fast_score_map(img, ini_threshold: float, min_threshold: float):
         brighter = diff > thr
         darker = diff < -thr
         is_corner = _contiguous_9(brighter) | _contiguous_9(darker)
-        s_b = torch.sum(torch.where(brighter, diff - thr, zero), dim=0)
-        s_d = torch.sum(torch.where(darker, -diff - thr, zero), dim=0)
-        return is_corner, torch.maximum(s_b, s_d)
+        return is_corner, torch.maximum(_ring_sum(torch.where(brighter, diff - thr, zero)),
+                                        _ring_sum(torch.where(darker, -diff - thr, zero)))
 
     corner_lo, score_lo = corner_and_score(min_threshold)
     corner_hi, _ = corner_and_score(ini_threshold)

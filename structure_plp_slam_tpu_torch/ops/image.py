@@ -39,12 +39,153 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+# XLA:CPU's f32 summation order for each resize product, keyed by the
+# dot's shape ``(M, K, N)`` for ``[M, K] @ [K, N]``: the first product
+# ``A @ img`` has ``(h, H, W)``, the second ``(A @ img) @ B.T`` has
+# ``(h, W, w)``. XLA:CPU hands the dot to YNNPACK, which picks a kernel per
+# shape, so no rule over the shape gives the order; these entries are
+# measured, one per product of every pyramid level and half-resolution
+# line pass the port's cameras and tests use (``python -m
+# tests.xla_dot_orders`` regenerates them, ``tests/test_torch_frontend.py::
+# test_resize_summation_order`` holds each against XLA). An order is
+# ``(lanes, tree, split)``: tap k goes to accumulator k % lanes, each
+# accumulator one fused multiply-add chain in increasing k; the
+# accumulators are added in pairs ((a0 + a1) + (a2 + a3)) when ``tree``,
+# else left to right; with ``split`` > 0 each block of ``split``
+# consecutive k is summed apart that way and the blocks' sums are added
+# in increasing k. Measured with jax / jaxlib 0.9.0 on an x86-64 Xeon with
+# AVX-512 and AMX: another jaxlib, or a CPU on which YNNPACK picks other
+# kernels, may sum in other orders; test_resize_summation_order then fails
+# and tests.xla_dot_orders rewrites the table.
+_DEFAULT_ORDER = (1, False, 512)
+_XLA_DOT_ORDERS = {
+    (65, 97, 131): (4, True, 0),
+    (65, 131, 87): (2, False, 0),
+    (67, 320, 89): (2, False, 0),
+    (71, 512, 143): (4, True, 0),
+    (80, 320, 107): (4, True, 0),
+    (86, 512, 171): (4, True, 0),
+    (96, 320, 129): (4, True, 0),
+    (103, 512, 206): (4, True, 0),
+    (116, 320, 154): (2, False, 0),
+    (120, 320, 160): (2, False, 0),
+    (143, 1024, 286): (2, False, 0),
+    (148, 512, 296): (4, True, 0),
+    (161, 640, 214): (2, False, 0),
+    (167, 320, 222): (2, False, 0),
+    (171, 1024, 343): (2, False, 0),
+    (178, 512, 356): (4, True, 0),
+    (193, 640, 257): (4, True, 0),
+    (200, 320, 267): (4, True, 0),
+    (206, 1024, 412): (2, False, 0),
+    (213, 512, 427): (4, True, 0),
+    (247, 1024, 494): (4, True, 0),
+    (268, 1920, 536): (2, False, 1024),
+    (296, 1024, 593): (2, False, 0),
+    (322, 1920, 643): (4, True, 0),
+    (356, 1024, 711): (4, True, 0),
+    (386, 1920, 772): (4, True, 0),
+    (400, 640, 533): (2, False, 0),
+    (427, 1024, 853): (2, False, 0),
+    (463, 1920, 926): (2, False, 1024),
+    (556, 1920, 1111): (2, False, 1024),
+}
+
+
+def _dot_order(M: int, K: int, N: int):
+    """The summation order of ``[M, K] @ [K, N]`` (``_XLA_DOT_ORDERS``,
+    else ``_DEFAULT_ORDER``: one chain, blocks of 512). The resize equals
+    XLA:CPU's bit for bit only for the shapes in the table, and only for
+    the jaxlib and CPU it was measured with; another shape (a 752x480 or
+    1241x376 camera, say) gets the default order, which XLA may not use."""
+    return _XLA_DOT_ORDERS.get((M, K, N), _DEFAULT_ORDER)
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_taps(n_in: int, n_outs: tuple, order: tuple, device: str):
+    """The nonzero taps of ``_resize_matrix(n_in, n_out)`` for each
+    ``n_out`` of ``n_outs``, one after another along the output axis,
+    grouped by the accumulator that sums them under ``order``: ``idx``
+    int64 and ``w`` f64 ``[C, S, sum(n_outs)]`` (tap c of each of S =
+    blocks x lanes accumulators, C taps each, padded with weight 0 on tap
+    0 at the end of each chain, which adds an exact zero), on ``device``. The weights
+    are f32 values held in f64: each product is then exact, and one f64
+    add rounded to f32 is a fused multiply-add."""
+    lanes, _, split = order
+    W = np.concatenate([_resize_matrix(n_in, n) for n in n_outs])
+    groups = [[] for _ in range(W.shape[0])]
+    nblk = 1
+    for j in range(W.shape[0]):
+        nz = np.nonzero(W[j])[0]
+        blk0 = int(nz[0]) // split if split else 0
+        per = {}
+        for k in nz:
+            b = (int(k) // split - blk0) if split else 0
+            nblk = max(nblk, b + 1)
+            per.setdefault((b, int(k) % lanes), []).append(int(k))
+        groups[j] = per
+    S = nblk * lanes
+    C = max(len(v) for per in groups for v in per.values())
+    idx = np.zeros((C, S, W.shape[0]), np.int64)
+    w = np.zeros((C, S, W.shape[0]), np.float64)
+    for j, per in enumerate(groups):
+        for (b, lane), ks in per.items():
+            idx[: len(ks), b * lanes + lane, j] = ks
+            w[: len(ks), b * lanes + lane, j] = W[j, ks]
+    dev = torch.device(device)
+    return torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+
+
+def _banded_dot(x, n_outs: tuple, dim: int, order):
+    """``_resize_matrix`` for each of ``n_outs`` applied along ``dim`` of
+    the f32 matrix ``x`` (the results one after another along ``dim``),
+    every tap summed in ``order`` (see ``_XLA_DOT_ORDERS``). The same
+    arithmetic on every device: f32 accumulators, each step one f64 add of
+    an exact f64 product, rounded to f32. All taps are gathered and
+    multiplied at once; only the rounding chain runs tap by tap."""
+    lanes, tree, _ = order
+    idx, w = _resize_taps(x.shape[dim], tuple(n_outs), order, str(x.device))
+    x64 = x.to(torch.float64)
+    if dim == 1:
+        x64 = x64.T
+    prod = x64[idx] * w[..., None]  # [C, S, sum(n_outs), cols], exact
+    acc = prod[0].to(torch.float32)
+    for c in range(1, idx.shape[0]):
+        acc = (acc.to(torch.float64) + prod[c]).to(torch.float32)
+    out = None
+    for b in range(0, acc.shape[0], lanes):
+        part = acc[b : b + lanes]
+        while tree and part.shape[0] > 1:
+            part = part[0::2] + part[1::2]
+        blk = part[0]
+        for i in range(1, part.shape[0]):
+            blk = blk + part[i]
+        out = blk if out is None else out + blk
+    return out.T if dim == 1 else out
+
+
 def resize_bilinear(img, out_hw):
-    """Bilinear resize ``[H, W] -> out_hw`` as two matmuls."""
+    """Bilinear resize ``[H, W] -> out_hw``: the JAX package's two products
+    ``(A @ img) @ B.T`` with the interpolation operators, each summed over
+    its 2-8 nonzero taps in XLA:CPU's order for its shape, so the result
+    is the JAX package's bit for bit on every device."""
+    return _resize_many(img, [tuple(out_hw)])[0]
+
+
+def _resize_many(img, shapes):
+    """``resize_bilinear(img, hw)`` for each ``hw`` of ``shapes``; the first
+    products of the shapes whose dots share an order run as one."""
     H, W = img.shape
-    A = torch.from_numpy(_resize_matrix(H, out_hw[0])).to(img.device)
-    B = torch.from_numpy(_resize_matrix(W, out_hw[1])).to(img.device)
-    return A @ img @ B.T
+    groups = {}
+    for i, (h, _) in enumerate(shapes):
+        groups.setdefault(_dot_order(h, H, W), []).append(i)
+    out = [None] * len(shapes)
+    for order, lvs in groups.items():
+        hs = [shapes[i][0] for i in lvs]
+        for i, rows in zip(lvs, _banded_dot(img, tuple(hs), 0, order).split(hs)):
+            h, w = shapes[i]
+            out[i] = _banded_dot(rows, (w,), 1, _dot_order(h, W, w))
+    return out
 
 
 @functools.lru_cache(maxsize=32)
@@ -56,21 +197,39 @@ def _gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return k.astype(np.float32)
 
 
+def _blur(img, ksize: int, sigma: float, fused: bool):
+    """Separable Gaussian blur, reflect-101 padding, each pass's taps summed
+    in increasing order. ``fused`` False: one f32 multiply and add per tap
+    from zero (the JAX package's ``gaussian_blur`` called on its own).
+    ``fused`` True: the order its jitted ORB extractor computes, the first
+    two products joined in one fused multiply-add ``k0 * x0 + (k1 * x1)``
+    and every later tap one more (emulated in f64, rounded to f32)."""
+    k = _gaussian_kernel_1d(ksize, sigma)
+    half = ksize // 2
+
+    def taps(x, dim):
+        xs = x.unfold(dim, ksize, 1).movedim(-1, 0)  # tap i: [i] = x[j + i]
+        if not fused:
+            out = torch.zeros_like(img)
+            for i in range(ksize):
+                out = out + float(k[i]) * xs[i]
+            return out
+        out = float(k[1]) * xs[1]
+        for i in [0] + list(range(2, ksize)):
+            out = torch.add(out.to(torch.float64), xs[i].to(torch.float64),
+                            alpha=float(k[i])).to(torch.float32)
+        return out
+
+    x = F.pad(img[None, None], (0, 0, half, half), mode="reflect")[0, 0]
+    out = taps(x, 0)
+    x = F.pad(out[None, None], (half, half, 0, 0), mode="reflect")[0, 0]
+    return taps(x, 1)
+
+
 def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
     """Separable Gaussian blur, reflect-101 padding (cv::BORDER_REFLECT_101),
     summed tap by tap in the JAX package's order."""
-    k = _gaussian_kernel_1d(ksize, sigma)
-    half = ksize // 2
-    H, W = img.shape
-    x = F.pad(img[None, None], (0, 0, half, half), mode="reflect")[0, 0]
-    out = torch.zeros_like(img)
-    for i in range(ksize):
-        out = out + float(k[i]) * x[i : i + H, :]
-    x = F.pad(out[None, None], (half, half, 0, 0), mode="reflect")[0, 0]
-    out = torch.zeros_like(img)
-    for i in range(ksize):
-        out = out + float(k[i]) * x[:, i : i + W]
-    return out
+    return _blur(img, ksize, sigma, fused=False)
 
 
 def pyramid_shapes(rows: int, cols: int, num_levels: int, scale_factor: float):
@@ -87,7 +246,7 @@ def build_pyramid(img, num_levels: int, scale_factor: float):
     0 with the cumulative scale (the frontend paints the same levels into
     the atlas, :func:`build_atlas`)."""
     shapes = pyramid_shapes(*img.shape, num_levels, scale_factor)
-    return [img if lv == 0 else resize_bilinear(img, shapes[lv]) for lv in range(num_levels)]
+    return [img] + _resize_many(img, shapes[1:])
 
 
 ATLAS_GAP = 24  # inter-level padding: > IC-angle patch radius (15) + blur
@@ -109,6 +268,7 @@ def build_atlas(img, shapes, offsets, atlas_h: int, atlas_w: int):
     """Resize ``img`` to every pyramid level and paint the levels into the
     vertical atlas (zero gaps between them)."""
     atlas = torch.zeros((atlas_h, atlas_w), dtype=img.dtype, device=img.device)
+    levels = [img] + _resize_many(img, shapes[1:])
     for lv, ((h, w), y0) in enumerate(zip(shapes, offsets)):
-        atlas[y0 : y0 + h, :w] = img if lv == 0 else resize_bilinear(img, (h, w))
+        atlas[y0 : y0 + h, :w] = levels[lv]
     return atlas

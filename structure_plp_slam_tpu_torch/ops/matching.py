@@ -24,7 +24,6 @@ from structure_plp_slam_tpu_torch.utils.types import HAMMING_MASKED, topk_stable
 # Rotation-consistency histogram (reference match::angle_checker): bins,
 # and how many of the most popular keep their matches.
 ANGLE_BINS = 30
-KEEP_BINS = 3
 
 
 def _abs_du(pred_u, kp_u, wrap_cols):
@@ -36,18 +35,19 @@ def _abs_du(pred_u, kp_u, wrap_cols):
     return du
 
 
-def unpack_desc_bits(desc):
-    """``[..., 8] int32 -> [..., 256]`` f32 in {-1, +1} (bit-plane form)."""
-    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
-    bits = (desc[..., :, None] >> shifts) & 1
-    bits = bits.reshape(*desc.shape[:-1], 256)
+def unpack_desc_bits(desc_u32):
+    """``[..., 8]`` descriptors (u32 bit patterns in int32) ``-> [..., 256]``
+    f32 in {-1, +1} (bit-plane form)."""
+    shifts = torch.arange(32, device=desc_u32.device, dtype=torch.int32)
+    bits = (desc_u32[..., :, None] >> shifts) & 1
+    bits = bits.reshape(*desc_u32.shape[:-1], 256)
     return bits.to(torch.float32) * 2.0 - 1.0
 
 
-def distance_matrix_planes(bits_a, bits_b, valid_a=None, valid_b=None):
+def distance_matrix_mxu(bits_a, bits_b, valid_a=None, valid_b=None):
     """All-pairs Hamming ``[N, M]`` (int64) from ±1 bit planes ``[N, 256]``
-    via one f32 matmul — the counterpart of the JAX package's
-    ``distance_matrix_mxu``. Invalid entries are ``HAMMING_MASKED``."""
+    via one exact f32 matmul (the JAX package's name, from its MXU
+    matmul). Invalid entries are ``HAMMING_MASKED``."""
     dot = bits_a @ bits_b.T
     d = ((256.0 - dot) * 0.5).to(torch.int64)
     if valid_a is not None:
@@ -97,7 +97,7 @@ def match_by_projection(pred_uv, pred_level, lm_bits, lm_valid, kp_xy, kp_level,
     pyramid levels, best Hamming with an optional Lowe ratio test;
     ``wrap_cols`` wraps the u window (equirectangular).
     Returns ``(kp_idx [L] (-1 = none), dist [L])``."""
-    d = distance_matrix_planes(lm_bits, kp_bits, lm_valid, kp_valid)
+    d = distance_matrix_mxu(lm_bits, kp_bits, lm_valid, kp_valid)
     return _windowed_best(d, pred_uv, pred_level, kp_xy, kp_level,
                           radius_by_level, max_hamming, ratio, level_window, wrap_cols)
 
@@ -114,14 +114,15 @@ def mutual_best(d, max_hamming: int):
 
 def match_in_area(kp_xy_1, kp_angle_1, kp_bits_1, kp_valid_1, kp_xy_2, kp_angle_2,
                   kp_bits_2, kp_valid_2, *, window: float = 100.0, max_hamming: int = 50,
-                  ratio: float = 0.9, wrap_cols=None):
+                  ratio: float = 0.9, check_orientation: bool = True, wrap_cols=None):
     """2D-2D windowed matching for monocular initialization (reference
     match::area::match_in_consistent_area): frame-1 keypoints match
     frame-2 keypoints inside a square window around their own
     coordinates, Lowe-ratio tested, kept only when mutually best, then
-    filtered by the rotation histogram; ``wrap_cols`` wraps the u window
+    filtered by the rotation histogram (``check_orientation``);
+    ``wrap_cols`` wraps the u window
     (equirectangular). Returns ``idx_2_for_1 [N1]`` (-1 for unmatched)."""
-    d = distance_matrix_planes(kp_bits_1, kp_bits_2, kp_valid_1, kp_valid_2)
+    d = distance_matrix_mxu(kp_bits_1, kp_bits_2, kp_valid_1, kp_valid_2)
     dx = _abs_du(kp_xy_1[:, 0], kp_xy_2[:, 0], wrap_cols)
     dy = torch.abs(kp_xy_1[:, 1:2] - kp_xy_2[None, :, 1])
     d = torch.where((dx <= window) & (dy <= window), d, HAMMING_MASKED)
@@ -138,13 +139,16 @@ def match_in_area(kp_xy_1, kp_angle_1, kp_bits_1, kp_valid_1, kp_xy_2, kp_angle_
     # Mutual best only (stronger than the reference's last-writer dedup).
     best_rev = torch.argmin(d, dim=0)
     ok = ok & (best_rev[best] == rows)
-    return filter_by_rotation_histogram(torch.where(ok, best, -1), kp_angle_1, kp_angle_2)
+    matches = torch.where(ok, best, -1)
+    if check_orientation:
+        matches = filter_by_rotation_histogram(matches, kp_angle_1, kp_angle_2)
+    return matches
 
 
-def filter_by_rotation_histogram(matches, angle_1, angle_2):
+def filter_by_rotation_histogram(matches, angle_1, angle_2, keep_bins: int = 3):
     """Keep matches whose orientation difference falls in one of the
-    KEEP_BINS most popular histogram bins; the lower bin wins a tie, as
-    ``lax.top_k``."""
+    ``keep_bins`` most popular of ANGLE_BINS histogram bins; the lower bin
+    wins a tie, as ``lax.top_k``."""
     valid = matches >= 0
     dtheta = angle_1 - angle_2[torch.clamp(matches, 0, angle_2.shape[0] - 1)]
     # jnp.mod: C fmod, then shifted into the divisor's sign.
@@ -154,7 +158,7 @@ def filter_by_rotation_histogram(matches, angle_1, angle_2):
     bins = torch.clamp((dtheta * (ANGLE_BINS / two_pi)).to(torch.int64), 0, ANGLE_BINS - 1)
     hist = torch.zeros((ANGLE_BINS,), dtype=torch.int64, device=matches.device)
     hist.index_add_(0, bins, valid.to(torch.int64))
-    _, top = topk_stable(hist, KEEP_BINS)
+    _, top = topk_stable(hist, keep_bins)
     in_top = (bins[:, None] == top[None, :]).any(dim=1)
     return torch.where(valid & in_top, matches, -1)
 

@@ -15,6 +15,7 @@ Output layout (the frame's "features" dict of tensors):
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -25,6 +26,7 @@ import torch
 
 from structure_plp_slam_tpu_torch.ops import fast as fast_ops
 from structure_plp_slam_tpu_torch.ops import image as image_ops
+from structure_plp_slam_tpu_torch.utils import prng
 
 PATCH_RADIUS = 15  # IC-angle circular patch radius (31x31 patch).
 BRIEF_RADIUS = 13  # max |offset| of generated BRIEF points.
@@ -43,43 +45,88 @@ def _brief_pattern(seed: int = 1234, num_pairs: int = 256) -> np.ndarray:
     return pts.reshape(num_pairs, 4)
 
 
-def _windowed_sum(P, h, dim):
-    """Sliding-window sum of half-extent ``h`` along ``dim`` from an
-    exclusive prefix sum ``P`` (one extra leading element on ``dim``);
-    border windows are truncated."""
-    n = P.shape[dim] - 1
-    first = P.narrow(dim, 0, 1)
-    last = P.narrow(dim, P.shape[dim] - 1, 1)
-    hi = torch.cat([P, last.expand_as(P.narrow(dim, 0, h))], dim=dim).narrow(
-        dim, h + 1, n
-    )
-    lo = torch.cat([first.expand_as(P.narrow(dim, 0, h)), P], dim=dim).narrow(
-        dim, 0, n
-    )
-    return hi - lo
+@functools.lru_cache(maxsize=8)
+def _brief_pattern_on(device: str):
+    """The pattern as f32 on ``device``, copied there once (a copy to the
+    card per call is a host sync)."""
+    return torch.from_numpy(_brief_pattern()).to(torch.float32).to(torch.device(device))
+
+
+def _moment_maps(img, fused: bool):
+    """``(m10, m01)`` from XLA:CPU's blocked prefix sums
+    (``prng.cumsum_xla``). Each column offset d adds d times a difference
+    of windowed sums: one f32 multiply and one f32 add (``fused`` False),
+    or one fused multiply-add (``fused`` True, emulated as an f64 add of
+    an exact f64 product, rounded to f32)."""
+    r = PATCH_RADIUS
+    H, W = img.shape
+
+    def padded_prefix(dim):
+        # exclusive prefix sums along dim, edges repeated r + 1 times more
+        P = prng.cumsum_xla(img, dim)
+        first, last = P.narrow(dim, 0, 1), P.narrow(dim, P.shape[dim] - 1, 1)
+        zero = torch.zeros_like(first)
+        return torch.cat([zero.expand_as(P.narrow(dim, 0, r + 1)), P,
+                          last.expand_as(P.narrow(dim, 0, r + 1))], dim=dim)
+
+    def moment(dim):
+        # window sums of half-extent h along dim, truncated at the borders
+        # (Pp[r + 1 + i + h] - Pp[r + 1 + i - h - 1]), land in the middle of
+        # a zero border of r on the other axis; offset d then reads them
+        # d ahead and d behind there
+        Pp = padded_prefix(dim)
+        n = img.shape[dim]
+        other = 1 - dim
+        Vz = img.new_zeros((H + 2 * r, W) if other == 0 else (H, W + 2 * r))
+        mid = Vz.narrow(other, r, img.shape[other])
+        acc = torch.zeros_like(img)
+        for d in range(1, r + 1):
+            h = int(math.floor(math.sqrt(r * r - d * d)))
+            torch.sub(Pp.narrow(dim, r + 1 + h, n), Pp.narrow(dim, r - h, n), out=mid)
+            diff = Vz.narrow(other, r + d, img.shape[other]) - Vz.narrow(
+                other, r - d, img.shape[other])
+            if fused:
+                acc = torch.add(acc.to(torch.float64), diff.to(torch.float64),
+                                alpha=d).to(torch.float32)
+            else:
+                acc = acc + float(d) * diff
+        return acc
+
+    # m10 sums column offsets of vertical window sums, m01 the reverse
+    return moment(0), moment(1)
 
 
 def ic_moment_maps(img):
     """Dense IC-angle moment maps ``(m10, m01)`` at every pixel from prefix
     sums: each column offset d contributes d times a windowed sum of
-    half-extent floor(sqrt(r^2 - d^2))."""
-    r = PATCH_RADIUS
-    H, W = img.shape
-    Py = torch.cat([img.new_zeros((1, W)), torch.cumsum(img, dim=0)], dim=0)
-    Px = torch.cat([img.new_zeros((H, 1)), torch.cumsum(img, dim=1)], dim=1)
-    m10 = torch.zeros_like(img)
-    m01 = torch.zeros_like(img)
-    for d in range(1, r + 1):
-        h = int(math.floor(math.sqrt(r * r - d * d)))
-        V = _windowed_sum(Py, h, dim=0)
-        left = torch.cat([V, V.new_zeros((H, d))], dim=1)[:, d:]
-        right = torch.cat([V.new_zeros((H, d)), V], dim=1)[:, :W]
-        m10 = m10 + float(d) * (left - right)
-        Hs = _windowed_sum(Px, h, dim=1)
-        down = torch.cat([Hs, Hs.new_zeros((d, W))], dim=0)[d:, :]
-        up = torch.cat([Hs.new_zeros((d, W)), Hs], dim=0)[:H, :]
-        m01 = m01 + float(d) * (down - up)
-    return m10, m01
+    half-extent floor(sqrt(r^2 - d^2)). Summed as the JAX package's
+    function is when called on its own; the extractor's jitted pass fuses
+    each multiply-add (``OrbExtractor``)."""
+    return _moment_maps(img, fused=False)
+
+
+@functools.lru_cache(maxsize=1)
+def _libm():
+    lib = ctypes.CDLL("libm.so.6")
+    for name, nargs in (("atan2f", 2), ("cosf", 1), ("sinf", 1)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_float
+        fn.argtypes = [ctypes.c_float] * nargs
+    return lib
+
+
+def _trig(name: str, *args):
+    """``atan2``, ``cos`` or ``sin`` of 1-D tensors. For f32 tensors on the
+    CPU these are glibc's ``atan2f``, ``cosf`` and ``sinf``, one call per
+    element, the functions XLA:CPU computes, so angles and rotations are
+    the JAX package's bit for bit. On CUDA torch's kernels compute them,
+    within 2 ulp of glibc: the one place where the devices compute
+    differently. Other dtypes take torch's functions on either device."""
+    if args[0].device.type != "cpu" or args[0].dtype != torch.float32:
+        return getattr(torch, name)(*args)
+    fn = getattr(_libm(), name + "f")
+    vals = [a.tolist() for a in args]
+    return torch.tensor([fn(*v) for v in zip(*vals)], dtype=torch.float32)
 
 
 def ic_angles(img, xy, moments=None):
@@ -91,16 +138,16 @@ def ic_angles(img, xy, moments=None):
     H, W = img.shape
     xs = torch.clamp(xy[:, 0].to(torch.int64), 0, W - 1)
     ys = torch.clamp(xy[:, 1].to(torch.int64), 0, H - 1)
-    return torch.atan2(m01[ys, xs], m10[ys, xs])
+    return _trig("atan2", m01[ys, xs], m10[ys, xs])
 
 
 def _brief_sample_coords(xy, angles):
     """Rotated BRIEF sample coordinates: two ``[K, 256]`` (x, y) pairs.
     ``torch.round`` rounds half to even, as ``jnp.round`` does."""
-    pat = torch.from_numpy(_brief_pattern()).to(xy.device).to(torch.float32)
+    pat = _brief_pattern_on(str(xy.device))
     x0, y0, x1, y1 = pat[:, 0], pat[:, 1], pat[:, 2], pat[:, 3]
-    c = torch.cos(angles)[:, None]
-    s = torch.sin(angles)[:, None]
+    c = _trig("cos", angles)[:, None]
+    s = _trig("sin", angles)[:, None]
 
     def rot(px, py):
         rx = torch.round(c * px[None, :] - s * py[None, :]).to(torch.int64)
@@ -204,8 +251,8 @@ class OrbExtractor:
         score_a = fast_ops.nms3x3(
             fast_ops.fast_score_map(atlas, p.ini_fast_thr, p.min_fast_thr)
         )
-        m10_a, m01_a = ic_moment_maps(atlas)
-        blur_flat = image_ops.gaussian_blur(atlas).reshape(-1)
+        m10_a, m01_a = _moment_maps(atlas, fused=True)
+        blur_flat = image_ops._blur(atlas, 7, 2.0, fused=True).reshape(-1)
 
         outs = []
         xy_list, angle_list = [], []
@@ -222,13 +269,13 @@ class OrbExtractor:
             )
             xs = torch.clamp(xy[:, 0].to(torch.int64), 0, W - 1)
             ys = torch.clamp(xy[:, 1].to(torch.int64), 0, H - 1) + y0
-            angle = torch.atan2(m01_a[ys, xs], m10_a[ys, xs])
+            angle = _trig("atan2", m01_a[ys, xs], m10_a[ys, xs])
             xy_list.append(xy)
             angle_list.append(angle)
-            scale = torch.tensor(p.scale_factor**lv, dtype=torch.float32)
+            scale = float(np.float32(p.scale_factor**lv))  # an f32 multiply, no copy
             outs.append(
                 dict(
-                    xy=xy * scale.to(xy.device),
+                    xy=xy * scale,
                     response=resp,
                     level=torch.full((budget,), lv, dtype=torch.int64, device=img.device),
                     angle=angle,

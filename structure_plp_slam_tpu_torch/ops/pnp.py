@@ -13,11 +13,7 @@ from __future__ import annotations
 import torch
 
 from structure_plp_slam_tpu_torch.models import pose_opt
-from structure_plp_slam_tpu_torch.ops.ransac import (
-    NUM_HYPOTHESES,
-    distinct_sets,
-    sample_minimal_sets,
-)
+from structure_plp_slam_tpu_torch.ops.ransac import distinct_sets, sample_minimal_sets
 
 
 def pnp_dlt(points_w, bearings):
@@ -51,16 +47,18 @@ def pnp_dlt(points_w, bearings):
     return R, P[..., 3] / safe_scale[..., None]
 
 
-def pnp_ransac(camera, points_w, uv, inv_sigma_sq, valid, key):
-    """RANSAC PnP on pixel observations, polished with the motion-only LM.
-    Returns (R, t, inliers [N], num_inliers)."""
+def pnp_ransac(camera, points_w, uv, inv_sigma_sq, valid, key, *,
+               num_hypotheses: int = 256):
+    """RANSAC PnP over ``num_hypotheses`` minimal sets on pixel
+    observations, polished with the motion-only LM. Returns (R, t,
+    inliers [N], num_inliers)."""
     N = points_w.shape[0]
     bx = (uv[:, 0] - camera.cx) / camera.fx
     by = (uv[:, 1] - camera.cy) / camera.fy
     b = torch.stack([bx, by, torch.ones_like(bx)], dim=-1)
     b = b / torch.linalg.norm(b, dim=-1, keepdim=True)
 
-    idx = sample_minimal_sets(key, NUM_HYPOTHESES, 6, N, valid)
+    idx = sample_minimal_sets(key, num_hypotheses, 6, N, valid)
     R, t = pnp_dlt(points_w[idx], b[idx])
 
     pc = torch.einsum("sij,nj->sni", R, points_w) + t[:, None, :]

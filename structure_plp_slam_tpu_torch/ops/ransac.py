@@ -30,19 +30,14 @@ from structure_plp_slam_tpu_torch.ops import triangulation
 from structure_plp_slam_tpu_torch.utils import prng
 from structure_plp_slam_tpu_torch.utils.types import rdiv, topk_stable
 
-NUM_HYPOTHESES = 256  # minimal sets scored per RANSAC call
+NUM_HYPOTHESES = 256  # minimal sets scored per RANSAC call (the default)
 H_INLIER_THR = 11.98  # 2 * 5.99: two chi2-gated transfer errors at sigma = 1 (px^2)
-# The coherent consensus (GC-RANSAC's stand-in): k-NN graph size,
-# mean-field sweeps and the weight of the neighbours' vote.
-NUM_NEIGHBORS = 8
-NUM_SWEEPS = 4
-SMOOTHNESS = 2.0
-# A triangulated point counts when both rays agree with its direction
-# within REPROJ_COS (the perspective init's; the equirectangular init
-# passes cos(5 px / focal_like)) and the rays' parallax exceeds
-# MIN_PARALLAX_DEG.
-MIN_PARALLAX_DEG = 1.0
-REPROJ_COS = 0.9998
+# The coherent consensus (GC-RANSAC's stand-in) takes a k-NN graph size
+# (num_neighbors, 8), mean-field sweeps (num_sweeps, 4) and the weight of
+# the neighbours' vote (smoothness, 2.0). A triangulated point counts when
+# both rays agree with its direction within reproj_cos (0.9998, the
+# perspective init's; the equirectangular init passes cos(5 px /
+# focal_like)) and the rays' parallax exceeds min_parallax_deg (1.0).
 
 
 def sample_minimal_sets(key, num_sets: int, set_size: int, num_points: int, valid):
@@ -113,11 +108,12 @@ def _msac(err, valid, inlier_thr, idx):
     return best, err[best], score[best]
 
 
-def essential_ransac(b1, b2, valid, key, *, inlier_thr: float = 1e-6):
-    """MSAC over batched 8-point hypotheses. ``b1, b2: [N, 3]`` bearings.
-    Returns (E [3,3], inlier_mask [N], score)."""
+def essential_ransac(b1, b2, valid, key, *, num_hypotheses: int = NUM_HYPOTHESES,
+                     inlier_thr: float = 1e-6):
+    """MSAC over ``num_hypotheses`` batched 8-point hypotheses. ``b1, b2:
+    [N, 3]`` bearings. Returns (E [3,3], inlier_mask [N], score)."""
     N = b1.shape[0]
-    idx = sample_minimal_sets(key, NUM_HYPOTHESES, 8, N, valid)
+    idx = sample_minimal_sets(key, num_hypotheses, 8, N, valid)
     E = essential_8pt(b1[idx], b2[idx])
     best, err, score = _msac(epipolar_error_angular(E, b1[None], b2[None]), valid,
                              inlier_thr, idx)
@@ -156,20 +152,26 @@ def _coherent_tail(err, x, valid, inlier_thr):
     return inl, torch.sum(torch.clamp(inlier_thr - masked, min=0.0))
 
 
-def essential_ransac_coherent(b1, b2, uv1, valid, key, *, inlier_thr: float = 1e-6):
+def essential_ransac_coherent(b1, b2, uv1, valid, key, *,
+                              inlier_thr: float = 1e-6,
+                              num_hypotheses: int = NUM_HYPOTHESES,
+                              num_neighbors: int = 8,
+                              num_sweeps: int = 4,
+                              smoothness: float = 2.0):
     """Spatially coherent essential-matrix consensus: the MSAC seed, then
     mean-field smoothing of the inlier labels over the match k-NN graph
     alternating with a weighted 8-point refit (the reference's GC-RANSAC,
     initialize/perspective.cc:70-85)."""
-    E, inl0, _ = essential_ransac(b1, b2, valid, key, inlier_thr=inlier_thr)
-    nbr, nbr_ok = _match_knn_graph(uv1, valid, NUM_NEIGHBORS)
+    E, inl0, _ = essential_ransac(b1, b2, valid, key, num_hypotheses=num_hypotheses,
+                                  inlier_thr=inlier_thr)
+    nbr, nbr_ok = _match_knn_graph(uv1, valid, num_neighbors)
     tau = 0.5 * inlier_thr
     A = torch.einsum("ni,nj->nij", b2, b1).reshape(-1, 9)
     x = inl0.to(torch.float32)
-    for _ in range(NUM_SWEEPS):
+    for _ in range(num_sweeps):
         err = epipolar_error_angular(E, b1, b2)
         unary = (inlier_thr - err) / tau
-        x = torch.sigmoid(unary + SMOOTHNESS * _coherent_field(x, nbr, nbr_ok))
+        x = torch.sigmoid(unary + smoothness * _coherent_field(x, nbr, nbr_ok))
         x = _where0(valid, x)
         E = _project_essential(_weighted_nullvec9(A, x).reshape(3, 3))
     inl, score = _coherent_tail(epipolar_error_angular(E, b1, b2), x, valid, inlier_thr)
@@ -253,36 +255,44 @@ def homography_transfer_error(H, p1, p2):
     return fwd(H, p1, p2) + fwd(_linalg.inv3x3(H), p2, p1)
 
 
-def homography_ransac(p1, p2, valid, key):
-    """MSAC over batched 4-point homographies on pixel coordinates
-    (inliers within H_INLIER_THR). Returns (H [3,3], inliers [N], score)."""
+def homography_ransac(p1, p2, valid, key, *, num_hypotheses: int = NUM_HYPOTHESES,
+                      inlier_thr: float = H_INLIER_THR):
+    """MSAC over ``num_hypotheses`` batched 4-point homographies on pixel
+    coordinates (inliers within ``inlier_thr``, 2 * 5.99 px^2). Returns
+    (H [3,3], inliers [N], score)."""
     N = p1.shape[0]
-    idx = sample_minimal_sets(key, NUM_HYPOTHESES, 4, N, valid)
+    idx = sample_minimal_sets(key, num_hypotheses, 4, N, valid)
     H = homography_4pt(p1[idx], p2[idx])
     best, err, score = _msac(homography_transfer_error(H, p1[None], p2[None]), valid,
-                             H_INLIER_THR, idx)
-    return H[best], (err <= H_INLIER_THR) & valid, score
+                             inlier_thr, idx)
+    return H[best], (err <= inlier_thr) & valid, score
 
 
-def homography_ransac_coherent(p1, p2, valid, key):
+def homography_ransac_coherent(p1, p2, valid, key, *,
+                               inlier_thr: float = H_INLIER_THR,
+                               num_hypotheses: int = NUM_HYPOTHESES,
+                               num_neighbors: int = 8,
+                               num_sweeps: int = 4,
+                               smoothness: float = 2.0):
     """Spatially coherent homography consensus (see
     :func:`essential_ransac_coherent`); weighted-DLT refit."""
-    H, inl0, _ = homography_ransac(p1, p2, valid, key)
-    nbr, nbr_ok = _match_knn_graph(p1, valid, NUM_NEIGHBORS)
-    tau = 0.5 * H_INLIER_THR
+    H, inl0, _ = homography_ransac(p1, p2, valid, key, num_hypotheses=num_hypotheses,
+                                   inlier_thr=inlier_thr)
+    nbr, nbr_ok = _match_knn_graph(p1, valid, num_neighbors)
+    tau = 0.5 * inlier_thr
     p1n, T1 = _normalize_pts(p1)
     p2n, T2 = _normalize_pts(p2)
     A = _dlt_rows(p1n, p2n)
     T2_inv = _linalg.inv3x3(T2)
     x = inl0.to(torch.float32)
-    for _ in range(NUM_SWEEPS):
+    for _ in range(num_sweeps):
         err = homography_transfer_error(H, p1, p2)
-        unary = (H_INLIER_THR - err) / tau
-        x = torch.sigmoid(unary + SMOOTHNESS * _coherent_field(x, nbr, nbr_ok))
+        unary = (inlier_thr - err) / tau
+        x = torch.sigmoid(unary + smoothness * _coherent_field(x, nbr, nbr_ok))
         x = _where0(valid, x)
         Hn = _weighted_nullvec9(A, torch.cat([x, x])).reshape(3, 3)
         H = _normalize_h(T2_inv @ Hn @ T1)
-    inl, score = _coherent_tail(homography_transfer_error(H, p1, p2), x, valid, H_INLIER_THR)
+    inl, score = _coherent_tail(homography_transfer_error(H, p1, p2), x, valid, inlier_thr)
     return H, inl, score
 
 
@@ -343,21 +353,23 @@ def _dircos(p, b):
     return torch.sum(d * b, dim=-1)
 
 
-def select_pose_by_cheirality(Rs, ts, b1, b2, valid, *, spherical: bool = False,
-                              reproj_cos: float = REPROJ_COS):
+def select_pose_by_cheirality(Rs, ts, b1, b2, valid, *,
+                              min_parallax_deg: float = 1.0,
+                              spherical: bool = False,
+                              reproj_cos: float = 0.9998):
     """Pick the (R, t) candidate with the most valid triangulations.
 
     ``Rs [C,3,3], ts [C,3]``: candidate poses of camera 2 wrt camera 1
     (x2 = R x1 + t); ``b1, b2 [N, 3]`` bearings; ``valid [N]``. A point
     counts when it lies in front of both cameras, both rays agree with
     its direction within ``reproj_cos`` and the ray parallax exceeds
-    MIN_PARALLAX_DEG (initialize/base.cc check_pose). ``spherical``
+    ``min_parallax_deg`` (initialize/base.cc check_pose). ``spherical``
     (full-sphere bearings, equirectangular): points behind the camera are
     observable, so "in front" is along the ray (point . bearing > 0) in
     both cameras instead of z > 0 (initialize/bearing_vector.cc).
     Returns (R, t, points_c1 [N,3], good_mask [N], num_good); the first
     candidate wins a tie."""
-    max_cos = math.cos(math.radians(MIN_PARALLAX_DEG))
+    max_cos = math.cos(math.radians(min_parallax_deg))
     pts_all, good_all = [], []
     for c in range(Rs.shape[0]):
         R, t = Rs[c], ts[c]

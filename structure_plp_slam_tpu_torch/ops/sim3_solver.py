@@ -16,9 +16,8 @@ import torch
 from structure_plp_slam_tpu_torch.ops.ransac import distinct_sets, sample_minimal_sets
 from structure_plp_slam_tpu_torch.utils.types import rdiv
 
-NUM_HYPOTHESES = 128  # minimal sets per RANSAC call
+NUM_HYPOTHESES = 128  # minimal sets per RANSAC call (sim3_ransac's default)
 CHI2_GATE = 9.21      # 99% of a 2-DoF chi-square: a reprojection inlier (x sigma^2)
-REFINE_ITERS = 10     # reweighted Umeyama fits of refine_sim3
 
 
 def umeyama_alignment(P, Q, with_scale: bool = True):
@@ -54,14 +53,16 @@ def _reproj_err(camera, R, t, s, pts_from, uv_to):
     return torch.where(pc[..., 2] > 0, err, torch.full_like(err, float("inf")))
 
 
-def sim3_ransac(camera, pts_1, pts_2, uv_1, uv_2, sigma_sq_1, sigma_sq_2, valid, key):
+def sim3_ransac(camera, pts_1, pts_2, uv_1, uv_2, sigma_sq_1, sigma_sq_2, valid, key, *,
+                num_hypotheses: int = NUM_HYPOTHESES, fix_scale: bool = False):
     """Estimate ``S_21`` (camera-1-frame points -> camera-2 frame) from
     landmark positions in each keyframe's camera frame and their observed
-    keypoints. An inlier reprojects within ``CHI2_GATE * sigma^2`` both
-    ways. Returns (R_21, t_21, s_21, inliers [N], num_inliers)."""
+    keypoints, over ``num_hypotheses`` minimal sets (scale 1 with
+    ``fix_scale``). An inlier reprojects within ``CHI2_GATE * sigma^2``
+    both ways. Returns (R_21, t_21, s_21, inliers [N], num_inliers)."""
     N = pts_1.shape[0]
-    idx = sample_minimal_sets(key, NUM_HYPOTHESES, 3, N, valid)
-    R, t, s = umeyama_alignment(pts_1[idx], pts_2[idx])
+    idx = sample_minimal_sets(key, num_hypotheses, 3, N, valid)
+    R, t, s = umeyama_alignment(pts_1[idx], pts_2[idx], with_scale=not fix_scale)
     e12 = _reproj_err(camera, R, t, s, pts_1[None], uv_2[None])
     R_inv = R.transpose(-1, -2)
     s_inv = rdiv(1.0, torch.clamp(s, min=1e-12))
@@ -77,13 +78,14 @@ def sim3_ransac(camera, pts_1, pts_2, uv_1, uv_2, sigma_sq_1, sigma_sq_2, valid,
     return R[best], t[best], s[best], ok[best], counts[best]
 
 
-def refine_sim3(camera, R, t, s, pts_1, pts_2, uv_1, uv_2, inliers):
+def refine_sim3(camera, R, t, s, pts_1, pts_2, uv_1, uv_2, inliers,
+                num_iters: int = 10):
     """Polish a Sim3 on its inliers (the reference's transform_optimizer
-    mutual-reprojection refinement): ``REFINE_ITERS`` Umeyama fits with
+    mutual-reprojection refinement): ``num_iters`` Umeyama fits with
     the outliers collapsed onto the inlier centroid, each followed by
     re-gating the one-way reprojection. Returns (R, t, s, inliers, count)."""
     inl = inliers
-    for _ in range(REFINE_ITERS):
+    for _ in range(num_iters):
         w = inl.to(torch.float32)
         wsum = torch.clamp(torch.sum(w), min=3.0)
         mu1 = torch.sum(pts_1 * w[:, None], dim=0) / wsum

@@ -14,47 +14,43 @@ import torch
 from structure_plp_slam_tpu_torch.ops import matching
 from structure_plp_slam_tpu_torch.utils.types import HAMMING_MASKED, rdiv
 
-MIN_DISPARITY = 0.0  # px, exclusive
-MAX_HAMMING = 80
-PATCH = 5   # SAD patch half-width (11x11)
-WINDOW = 5  # SAD search half-width (11 integer offsets)
-
-
 def match_stereo(img_left, img_right, kp_l_xy, kp_l_level, kp_l_bits, kp_l_valid,
                  kp_r_xy, kp_r_level, kp_r_bits, kp_r_valid, scale_factors, *,
-                 focal_x_baseline: float):
+                 focal_x_baseline: float, min_disparity: float = 0.0,
+                 max_hamming: int = 80, patch: int = 5, window: int = 5):
     """Returns (x_right [N], depth [N], valid [N]) for the left keypoints;
     x_right is -1 and depth 0 where not valid.
 
     1. candidates on the same row within 2 sigma(level), disparity in
-       (MIN_DISPARITY, focal_x_baseline], pyramid levels within 1, Hamming
-       <= MAX_HAMMING; the best per left keypoint (lowest index on ties);
-    2. SAD of the left patch against the right image at integer offsets
-       -WINDOW..WINDOW around the match; the first minimum (lowest offset
-       on ties, as ``jnp.argmin`` on flat patches) and a parabola through
-       its neighbours give the sub-pixel x."""
+       (min_disparity, focal_x_baseline], pyramid levels within 1, Hamming
+       <= max_hamming; the best per left keypoint (lowest index on ties);
+    2. SAD of the left patch (half-width ``patch``) against the right
+       image at integer offsets -window..window around the match; the
+       first minimum (lowest offset on ties, as ``jnp.argmin`` on flat
+       patches) and a parabola through its neighbours give the sub-pixel
+       x."""
     H, W = img_left.shape
     dev = img_left.device
     max_disparity = focal_x_baseline  # depth >= baseline (reference bound)
 
     sig_l = scale_factors[torch.clamp(kp_l_level, 0, scale_factors.shape[0] - 1)]
-    d = matching.distance_matrix_planes(kp_l_bits, kp_r_bits, kp_l_valid, kp_r_valid)
+    d = matching.distance_matrix_mxu(kp_l_bits, kp_r_bits, kp_l_valid, kp_r_valid)
     row_ok = torch.abs(kp_l_xy[:, 1:2] - kp_r_xy[None, :, 1]) <= 2.0 * sig_l[:, None]
     disp = kp_l_xy[:, 0:1] - kp_r_xy[None, :, 0]
-    disp_ok = (disp > MIN_DISPARITY) & (disp <= max_disparity)
+    disp_ok = (disp > min_disparity) & (disp <= max_disparity)
     level_ok = torch.abs(kp_l_level[:, None] - kp_r_level[None, :]) <= 1
     d = torch.where(row_ok & disp_ok & level_ok, d, HAMMING_MASKED)
     best = torch.argmin(d, dim=1)
     best_d = torch.gather(d, 1, best[:, None])[:, 0]
-    matched = best_d <= MAX_HAMMING
+    matched = best_d <= max_hamming
 
     # ---- SAD sub-pixel refinement on the full-resolution images ---------
     xl = kp_l_xy[:, 0].to(torch.int64)
     yl = kp_l_xy[:, 1].to(torch.int64)
     xr0 = kp_r_xy[best, 0].to(torch.int64)
-    offs = torch.arange(-PATCH, PATCH + 1, device=dev)
-    dy = offs.repeat_interleave(2 * PATCH + 1)
-    dx = offs.repeat(2 * PATCH + 1)
+    offs = torch.arange(-patch, patch + 1, device=dev)
+    dy = offs.repeat_interleave(2 * patch + 1)
+    dx = offs.repeat(2 * patch + 1)
 
     def gather(img, xs, ys):
         yy = torch.clamp(ys[:, None] + dy[None, :], 0, H - 1)
@@ -64,20 +60,20 @@ def match_stereo(img_left, img_right, kp_l_xy, kp_l_level, kp_l_bits, kp_l_valid
     tmpl = gather(img_left, xl, yl)  # [N, P]
     sad = torch.stack(
         [torch.sum(torch.abs(tmpl - gather(img_right, xr0 + off, yl)), dim=1)
-         for off in range(-WINDOW, WINDOW + 1)],
+         for off in range(-window, window + 1)],
         dim=1,
     )  # [N, 2w+1]
     k = torch.argmin(sad, dim=1)
-    k_c = torch.clamp(k, 1, 2 * WINDOW - 1)
+    k_c = torch.clamp(k, 1, 2 * window - 1)
     s_m = torch.gather(sad, 1, (k_c - 1)[:, None])[:, 0]
     s_0 = torch.gather(sad, 1, k_c[:, None])[:, 0]
     s_p = torch.gather(sad, 1, (k_c + 1)[:, None])[:, 0]
     denom = torch.clamp(s_m - 2.0 * s_0 + s_p, min=1e-6)
     delta = torch.clamp(0.5 * (s_m - s_p) / denom, -1.0, 1.0)
-    x_right = (xr0 + k_c - WINDOW).to(torch.float32) + delta
+    x_right = (xr0 + k_c - window).to(torch.float32) + delta
 
     disparity = kp_l_xy[:, 0] - x_right
-    ok = matched & (disparity > MIN_DISPARITY) & (disparity <= max_disparity)
+    ok = matched & (disparity > min_disparity) & (disparity <= max_disparity)
     safe_disp = torch.where(ok, torch.clamp(disparity, min=1e-6), torch.ones_like(disparity))
     depth = torch.where(ok, rdiv(focal_x_baseline, safe_disp), torch.zeros_like(disparity))
     x_right = torch.where(ok, x_right, torch.full_like(x_right, -1.0))

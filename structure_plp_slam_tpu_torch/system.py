@@ -123,7 +123,10 @@ class StageTimer:
         self.times: dict = collections.defaultdict(list)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, sync_on=None):
+        """Time the block as stage ``name``. ``sync_on`` names what the
+        JAX package's synced timer waits for; a synced port timer waits
+        for the whole card (``torch.cuda.synchronize``), which covers it."""
         t0 = time.perf_counter()
         try:
             with torch.profiler.record_function(f"stage.{name}"):
@@ -490,7 +493,7 @@ class System:
         self.key = prng.PRNGKey(seed)
         # Loop closing and relocalization share the retrieval index.
         self.enable_loop_closing = enable_loop_closing
-        self.loop_closer = loop_mod.LoopCloser(config.camera, self.device)
+        self.loop_closer = loop_mod.LoopCloser(config.camera, device=self.device)
         if distributed_ba and self.device.type == "cuda" and torch.cuda.device_count() > 1:
             self.loop_closer.mesh = LandmarkMesh(
                 [f"cuda:{i}" for i in range(torch.cuda.device_count())])
@@ -549,6 +552,10 @@ class System:
     def tracking_state(self) -> TrackerState:
         self._drain_pending()
         return self._tracking_state
+
+    @tracking_state.setter
+    def tracking_state(self, value):
+        self._tracking_state = value
 
     def _drain_pending(self):
         while self._pending:
@@ -859,9 +866,9 @@ class System:
     # ------------------------------------------------------------------
     def feed_monocular_frame(self, img, timestamp: float, mask=None, seg_mask=None):
         """Track one monocular frame (see :meth:`feed_RGBD_frame`)."""
-        self._frame_key()
+        key = self._frame_key()
         with self.timer.stage("frontend"):
-            feats = self.frontend.mono(img, mask=mask)
+            feats = self.frontend.mono(img, key, mask=mask)
         self._last_image = _keep_image(img)
         return self._track(feats, timestamp, seg_mask)
 
@@ -869,9 +876,9 @@ class System:
                           seg_mask=None):
         """Track one rectified stereo pair (see :meth:`feed_RGBD_frame`);
         ``ops/rectify.StereoRectifier`` rectifies a raw pair first."""
-        self._frame_key()
+        key = self._frame_key()
         with self.timer.stage("frontend"):
-            feats = self.frontend.stereo(img_left, img_right, mask=mask)
+            feats = self.frontend.stereo(img_left, img_right, key, mask=mask)
         self._last_image = _keep_image(img_left)
         return self._track(feats, timestamp, seg_mask)
 
@@ -883,9 +890,9 @@ class System:
         extraction mask, 0 = ignore. ``seg_mask``: optional [H, W]
         instance-id image (0 = background; the reference's *_with_SegMask
         feeds), whose keyframes get plane landmarks."""
-        self._frame_key()
+        key = self._frame_key()
         with self.timer.stage("frontend"):
-            feats = self.frontend.rgbd(img, depthmap, mask=mask)
+            feats = self.frontend.rgbd(img, depthmap, key, mask=mask)
         self._last_image = _keep_image(img)
         dense = (_dense_sample(img, depthmap, self.dense_cloud_stride,
                                self.camera.depthmap_factor)
@@ -898,11 +905,10 @@ class System:
         return k
 
     def _frame_key(self):
-        """With lines, the JAX System splits a key for each fed frame's line
-        detection (which does not use it); the port splits it too, so the
-        later draws stay in step."""
-        if self.with_lines:
-            self._split_key()
+        """With lines, a key for each fed frame's line detection, split as
+        the JAX System splits it (the detector draws nothing from it), so
+        the later draws stay in step; None without lines."""
+        return self._split_key() if self.with_lines else None
 
     def _track(self, feats, ts: float, seg_mask=None, dense=None):
         if self._paused or self._terminate_requested or not self._running:
@@ -1227,7 +1233,7 @@ class System:
         params = self.frontend.extractor.params
         lc = self.loop_closer
         do_detect = (self.enable_loop_closing and self.next_kf + 1 >= 8
-                     and slot - lc.last_loop_kf >= loop_mod.MIN_GAP
+                     and slot - lc.last_loop_kf >= lc.min_gap
                      and self._pending_loop is None)
         key = self._split_key()  # the chain's plane RANSAC draws
         with self.timer.stage("keyframe.chain"):

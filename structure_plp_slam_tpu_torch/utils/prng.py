@@ -19,7 +19,8 @@ Words are held in int64 tensors masked to 32 bits (torch's uint32 has few
 ops). The cumulative sum follows XLA:CPU's order for a 1-D ``cumsum``
 (blocks of 16 summed left to right, the block totals scanned the same way
 recursively): a different order moves a draw that sits within an ulp of a
-bucket edge.
+bucket edge. ``ops/orb.py``'s moment maps scan 2-D images the same way
+along either axis.
 """
 
 from __future__ import annotations
@@ -85,24 +86,29 @@ def uniform(key, shape, device=None):
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def cumsum_xla(x):
-    """1-D f32 cumulative sum in XLA:CPU's order (see the module note)."""
+def cumsum_xla(x, dim: int = 0):
+    """f32 cumulative sum along ``dim`` in XLA:CPU's order (see the module
+    note): blocks of 16 summed left to right, the block totals scanned the
+    same way recursively and added to every later block."""
+    x = x.movedim(dim, 0)
     n = x.shape[0]
     B = _SCAN_BLOCK
     if n <= B:
-        cols = [x[0]]
+        cols = [x[0]] if n else []
         for i in range(1, n):
             cols.append(cols[-1] + x[i])
-        return torch.stack(cols) if n else x.clone()
+        out = torch.stack(cols) if n else x.clone()
+        return out.movedim(0, dim)
     m = -(-n // B)
-    blk = torch.cat([x, x.new_zeros(m * B - n)]).reshape(m, B)
+    rest = x.shape[1:]
+    blk = torch.cat([x, x.new_zeros((m * B - n,) + rest)]).reshape((m, B) + rest)
     cols = [blk[:, 0]]
     for i in range(1, B):
         cols.append(cols[-1] + blk[:, i])
     inb = torch.stack(cols, dim=1)
     tot = cumsum_xla(inb[:, -1].contiguous())
     out = torch.cat([inb[:1], inb[1:] + tot[:-1, None]])
-    return out.reshape(-1)[:n]
+    return out.reshape((m * B,) + rest)[:n].movedim(0, dim)
 
 
 def choice_weighted(key, num_points: int, shape, p):

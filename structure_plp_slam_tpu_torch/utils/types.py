@@ -33,6 +33,18 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def pad_to(arr: np.ndarray, size: int, axis: int = 0, fill=0) -> np.ndarray:
+    """Pad a host array with ``fill`` along ``axis`` to length ``size``."""
+    n = arr.shape[axis]
+    if n > size:
+        raise ValueError(f"cannot pad axis of length {n} down to {size}")
+    if n == size:
+        return arr
+    widths = [(0, 0)] * arr.ndim
+    widths[axis] = (0, size - n)
+    return np.pad(arr, widths, constant_values=fill)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     another. Raises when CUDA is asked for (or defaulted to) without a
@@ -52,11 +64,12 @@ def rdiv(scalar: float, t):
     return torch.full_like(t, scalar) / t
 
 
-def masked_argmin(values, mask, dim: int = -1):
-    """Argmin over ``values`` where ``mask`` is True. Returns
-    ``(indices, min_values)``; rows without a valid entry give ``BIG``."""
+def masked_argmin(values, mask, axis: int = -1):
+    """Argmin along ``axis`` over ``values`` where ``mask`` is True.
+    Returns ``(indices, min_values)``; rows without a valid entry give
+    ``BIG``."""
     v = torch.where(mask, values, torch.full_like(values, BIG))
-    return torch.argmin(v, dim=dim), torch.amin(v, dim=dim)
+    return torch.argmin(v, dim=axis), torch.amin(v, dim=axis)
 
 
 def topk_stable(values, k: int, dim: int = -1):
@@ -74,15 +87,15 @@ def masked_topk_smallest(values, mask, k: int):
     return -neg, idx
 
 
-def safe_norm(x, dim=-1, eps=1e-12, keepdim=False):
-    """L2 norm clamped below by sqrt(eps)."""
-    sq = torch.sum(x * x, dim=dim, keepdim=keepdim)
+def safe_norm(x, axis=-1, eps=1e-12, keepdims=False):
+    """L2 norm along ``axis`` clamped below by sqrt(eps)."""
+    sq = torch.sum(x * x, dim=axis, keepdim=keepdims)
     return torch.sqrt(torch.clamp(sq, min=eps))
 
 
-def normalize(x, dim=-1, eps=1e-12):
-    """Unit-normalize along ``dim`` with safe division."""
-    return x / safe_norm(x, dim=dim, eps=eps, keepdim=True)
+def normalize(x, axis=-1, eps=1e-12):
+    """Unit-normalize along ``axis`` with safe division."""
+    return x / safe_norm(x, axis=axis, eps=eps, keepdims=True)
 
 
 def nanmedian_mean(z, ok):

@@ -16,9 +16,8 @@
   renderer: the same init frame, per-frame poses within 1e-3 m / 1e-3 rad,
   equal keyframe counts; the port's fused matcher is called 0 times (the
   JAX package routes the sphere around its kernel: tracker.py:149-157,
-  mapper.py:504-508). The two frontends' ~1% of differing descriptors
-  (ROADMAP C8) leave the init frame and the poses equal on this sequence,
-  so each System takes its own features.
+  mapper.py:504-508). Each System takes its own features, which are
+  equal (ROADMAP C8).
 
 The slow case is tests/test_equirect_system.py::
 test_equirect_mono_sequence_ate on both Systems, with its bounds.
@@ -131,7 +130,7 @@ def test_match_by_projection_wraps_like_jax(wrap, ratio):
     # The precomputed form on the same distances (the tracker's route).
     d_j = jmatching.distance_matrix_mxu(_bits_j(c["lm_desc"]), _bits_j(c["kp_desc"]),
                                         None, jnp.asarray(c["kp_valid"]))
-    d_t = tmatching.distance_matrix_planes(_bits_t(c["lm_desc"]), _bits_t(c["kp_desc"]),
+    d_t = tmatching.distance_matrix_mxu(_bits_t(c["lm_desc"]), _bits_t(c["kp_desc"]),
                                            None, torch.from_numpy(c["kp_valid"]))
     pj, qj = jmatching.match_by_projection_precomputed(
         d_j, jnp.asarray(c["lm_uv"]), jnp.asarray(c["lm_level"]), jnp.asarray(c["lm_valid"]),

@@ -7,10 +7,12 @@ on the CPU. Tolerances:
 
 - match indices and descriptors: exact (descriptors compared as the
   int32 bit patterns of the JAX package's uint32 words);
-- ``build_pyramid``: level 0 exact, the others within 1e-3 grey levels
-  (ROADMAP C8: the resize is an f32 matmul summed in another order);
-- ``ic_angles``: 1e-5 rad from the same moment maps; from the image,
-  1e-3 rad (C8: the moment maps' prefix sums run in another f32 order).
+- ``build_pyramid``: exact at every level (the resize sums its taps in
+  XLA:CPU's order for the shape, ROADMAP C8);
+- ``ic_angles``: exact from the same moment maps and from the image
+  against the JAX function called on its own (glibc's ``atan2f``, the
+  prefix sums in XLA:CPU's blocked order); 1e-3 rad from the moment maps
+  of ``jax.jit(ic_moment_maps)``, which XLA fuses in another order.
 
 The cases of tests/test_features.py that call these functions
 (test_descriptor_matches_under_translation,
@@ -87,19 +89,22 @@ def test_descriptor_matches_under_translation(rng):
 
 
 def test_ic_angles_matches_jax(rng):
-    """From JAX's moment maps (passed as ``moments``): 1e-5 rad. From the
-    image: each package's own moment maps, prefix sums in another f32
-    order (ROADMAP C8), within tests/test_torch_frontend.py's 1e-3 rad on
-    the extractor's angles."""
+    """From JAX's moment maps (passed as ``moments``): exact. From the
+    image: exact against the JAX function called on its own; within 1e-3
+    rad of the angles from ``jax.jit(ic_moment_maps)``, whose fusion sums
+    in another order (the extractor's jitted order is held exactly by
+    tests/test_torch_frontend.py)."""
     img = textured_image(rng)
     xy = _keypoints(rng, 400, *img.shape)
     jm = jax.jit(jorb.ic_moment_maps)(jnp.asarray(img))
     ja = np.asarray(jorb.ic_angles(jnp.asarray(img), jnp.asarray(xy), moments=jm))
     ta = torb.ic_angles(torch.from_numpy(img), torch.from_numpy(xy),
                         moments=tuple(torch.from_numpy(np.array(m)) for m in jm)).numpy()
-    np.testing.assert_allclose(ta, ja, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(ta, ja)
     ta = torb.ic_angles(torch.from_numpy(img), torch.from_numpy(xy)).numpy()
     np.testing.assert_allclose(ta, ja, rtol=0, atol=1e-3)
+    je = np.asarray(jorb.ic_angles(jnp.asarray(img), jnp.asarray(xy)))
+    np.testing.assert_array_equal(ta, je)
 
 
 def test_ic_angle_gradient_direction():
@@ -136,4 +141,4 @@ def test_build_pyramid_matches_jax(rng, shape, levels, scale):
     assert [tuple(t.shape) for t in tl] == timg.pyramid_shapes(*shape, levels, scale)
     np.testing.assert_array_equal(tl[0].numpy(), img)
     for j, t in zip(jl[1:], tl[1:]):
-        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-3)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))

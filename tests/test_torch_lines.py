@@ -10,9 +10,8 @@ JAX System built with lines over 5 RGB-D frames, carried across with
 * detection: valid masks and the picked hypotheses (their strengths, the
   inlier counts) exact, endpoints within 1e-3 px (the refit's f32 sums).
   The coarse pass runs on ``resize_bilinear``'s half-resolution image,
-  whose f32 matmul order differs from XLA's (ROADMAP C8/C17); on these
-  frames it still gives the same picks, which the multiscale case checks
-  with the same tolerances;
+  summed in XLA:CPU's order for its shape (ROADMAP C8); the multiscale
+  case checks it with the same tolerances;
 * band descriptors within 1e-4; ``depth_at_points``' ok mask exact and
   its depths within 1e-6 relative (the 7x7 SAD sums add in another f32
   order than XLA's);

@@ -182,6 +182,45 @@ def test_mono_system_went_through_matcher():
     assert launches == 0  # CPU tensors take the plain version
 
 
+def test_full_width_init_parity():
+    """ROADMAP C45: the two-view init at chip_smoke.py's width (640x480,
+    1000 keypoints over 8 levels) on the JAX frontend's features of
+    numpy seed 42's frames 0-1 (the pair both Systems initialize on) and
+    0-2, with keys 0-2. Success, point counts, the model and the matches
+    exactly; rotations within 1e-5 and translations within 1e-3; points
+    within 5e-2 m. The f32 essential-matrix solve (each package's own
+    eigh and SVD) leaves the translations up to ~1e-4 apart, and a 0.08 m
+    baseline scales that into millimetres of depth (printed), from which
+    the full-width monocular runs part (test_full_width_mono_*)."""
+    cam = Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE, **_FULL_KW)
+    jcam = JCamera(setup=JSetup.MONOCULAR, model=JModel.PERSPECTIVE, **_FULL_KW)
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 3, step=0.08)
+    fe = jfrontend.Frontend(jcam, JOrb(**_FULL_ORB), pad_to=1032)
+    f = [{k: np.asarray(v) for k, v in fe.mono(jnp.asarray(img)).items()}
+         for img, _, _ in frames]
+    gaps = []
+    for a, b in ((0, 1), (0, 2)):
+        for key in (0, 1, 2):
+            rj = jinit.try_initialize_mono(jcam, f[a], f[b], jax.random.PRNGKey(key))
+            rt = tinit.try_initialize_mono(cam, _to_torch(f[a]), _to_torch(f[b]),
+                                           prng.PRNGKey(key))
+            assert bool(rt.success) == bool(rj.success)
+            assert int(rt.num_points) == int(rj.num_points)
+            assert bool(rt.used_homography) == bool(rj.used_homography)
+            assert (rt.matches.numpy() == np.asarray(rj.matches)).all()
+            if not bool(rj.success):
+                continue
+            g = np.asarray(rj.point_ok)
+            assert (rt.point_ok.numpy() == g).all()
+            dR = np.abs(rt.R_2w.numpy() - np.asarray(rj.R_2w)).max()
+            dt = np.abs(rt.t_2w.numpy() - np.asarray(rj.t_2w)).max()
+            dp = np.abs(rt.points_w.numpy()[g] - np.asarray(rj.points_w)[g]).max()
+            gaps.append(((a, b), key, dR, dt, dp))
+            assert dR < 1e-5 and dt < 1e-3 and dp < 5e-2, gaps[-1]
+    print("init gaps (pair, key, R, t, points):", gaps)
+    assert len(gaps) >= 3
+
+
 @pytest.mark.slow
 def test_mono_sequence_ate():
     """tests/test_system_e2e.py::test_mono_sequence_ate on the port."""
@@ -204,104 +243,100 @@ def test_mono_sequence_ate():
     assert ate < 0.08, f"ATE {ate}"
 
 
-def _features_from(frontend, to):
-    """A ``mono(img, ...)`` that returns ``frontend``'s features of the
-    image, converted by ``to`` (one package's features fed to the other
-    package's System)."""
-    def mono(img, *args, mask=None):
-        return to(frontend.mono(img))
-    return mono
+_FULL_KW = dict(name="b", cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5,
+                fps=30.0, focal_x_baseline=0.0, depth_threshold=40.0, depthmap_factor=1.0)
+_FULL_ORB = dict(max_num_keypts=1000, num_levels=8)
 
 
-def _jax_to_port(f):
-    return _to_torch({k: np.asarray(v) for k, v in f.items()})
+def _full_width_systems(seed, num_frames=40, threads=(2,)):
+    """chip_smoke.py's monocular path on the CPU (640x480, 1000 keypoints
+    over 8 levels, ``num_frames`` frames at 0.08 m a frame,
+    max_kf_interval=3; capacities cut to 32 keyframes / 8192 landmarks),
+    each System on its own frontend, the port's once per torch thread
+    count in ``threads``. Checks that the two frontends give equal
+    features on every frame; returns each run's (state, lost frames,
+    trajectory length, first pose frame, first pose, keyframes, Sim3 ATE,
+    keyframe frames): the JAX System's, then the port's per thread count."""
+    cam = Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE, **_FULL_KW)
+    frames, poses = synthetic_scene.make_sequence(np.random.default_rng(seed), cam, num_frames,
+                                                  step=0.08)
+    sizes = dict(max_keyframes=32, max_landmarks=8192, max_kf_interval=3,
+                 enable_loop_closing=False)
 
+    def port_system():
+        return System(Config(camera=cam, orb=OrbParams(**_FULL_ORB), raw={}), device="cpu",
+                      **sizes)
 
-def _port_to_jax(like):
-    """Port features as the JAX frontend's dtypes (``like``: its output)."""
-    def to(f):
-        out = {}
-        for k, v in f.items():
-            a = v.numpy()
-            if like[k].dtype == np.uint32:
-                a = a.view(np.uint32)
-            out[k] = jnp.asarray(a.astype(like[k].dtype))
-        return out
-    return to
+    js = JSystem(JConfig(camera=JCamera(setup=JSetup.MONOCULAR, model=JModel.PERSPECTIVE,
+                                        **_FULL_KW), orb=JOrb(**_FULL_ORB), raw={}), **sizes)
+    port_fe = port_system().frontend
+    for img, _, _ in frames:
+        fj = {k: np.asarray(v) for k, v in js.frontend.mono(jnp.asarray(img)).items()}
+        ft = {k: v.numpy() for k, v in port_fe.mono(img).items()}
+        for k, v in fj.items():
+            np.testing.assert_array_equal(ft[k], v.view(np.int32) if v.dtype == np.uint32 else v)
+    gt = [(float(i) / 30.0, np.concatenate([R, t[:, None]], 1).astype(np.float64))
+          for i, (R, t) in enumerate(poses)]
+    out = []
+    before = torch.get_num_threads()
+    try:
+        for label, make, n in [("jax", lambda: js, before)] + [
+                ("port", port_system, n) for n in threads]:
+            torch.set_num_threads(n)
+            slam = make()
+            fed = _run(slam, frames)
+            first = next(i for i, p in enumerate(fed) if p is not None)
+            est = slam.frame_trajectory()
+            st = slam.state
+            kf = sorted(round(float(t) * 30) for t, v in zip(np.array(st.kf_timestamp),
+                                                               np.array(st.kf_valid)) if v)
+            r = (slam.tracking_state.value, [s[0] for s in slam._frame_stats if s[3]],
+                 len(est), first, fed[first], slam.num_keyframes,
+                 traj_io.ate_rmse(est, gt, align_scale=True), kf)
+            out.append(r)
+            print(f"seed {seed}, {label} System{'' if label == 'jax' else f' ({n} torch threads)'}"
+                  f": state {r[0]}, lost frames at {r[1]}, {r[2]} trajectory frames, first pose "
+                  f"at frame {r[3]}, {r[5]} keyframes (at frames {r[7]}), Sim3 ATE {r[6]:.6f} m")
+    finally:
+        torch.set_num_threads(before)
+    return out
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize("seed", [0, 1])
 def test_full_width_mono_matches_jax(seed):
-    """chip_smoke.py's monocular path on the CPU (640x480, 1000 keypoints
-    over 8 levels, 40 frames at 0.08 m a frame, max_kf_interval=3;
-    capacities cut to 32 keyframes / 8192 landmarks), on the other paths'
-    texture (seed 0) and the next one (seed 1).
+    """chip_smoke.py's monocular path on the CPU (``_full_width_systems``),
+    on the other paths' texture (seed 0) and the next one (seed 1). The
+    frontends are equal on every frame (ROADMAP C8), so each System takes
+    its own features: end state, lost frames and trajectory length equal,
+    the first pose on the same frame within 1e-3, Sim3 ATE within 0.01 m.
 
-    The two frontends' pyramid levels round differently (about 1% of the
-    descriptors differ, within tests/test_torch_frontend.py's tolerance),
-    and the two-view init turns on single area matches. On seed 1 the
-    port's features give one match fewer for frames 0-1, and that attempt
-    succeeds with a translation about 8 degrees off (the JAX features fail
-    it and initialize on frame 2); the trajectory then ends 0.25 m off
-    with frames lost near the end. So each System also runs on the other
-    package's features:
-
-    * on the JAX frontend's features the port System agrees with the JAX
-      System: end state, lost frames, trajectory length, first pose frame,
-      and Sim3 ATE within 0.01 m (seed 0's one-frame init baseline lets
-      the poses drift up to 0.05 m apart from frame 4 on, and its
-      keyframe count moves with the summation order: 7 or 8 with 2 or 3
-      torch threads; seed 1's poses stay within 2e-4 m);
-    * on either package's features both Systems take their first pose on
-      the same frame, and that pose agrees within 1e-3.
-
-    After seed 1's early init on the port's features the run is chaotic:
-    Sim3 ATE 0.27 m in the JAX System, 0.25-0.32 m in the port's with 3
-    or 2 torch threads, frames lost near the end in some of them.
+    Measured (this tree, 2 torch threads): seed 1, JAX 0.010472 m and the
+    port 0.010480 m, 7 keyframes each; seed 0, JAX 0.073879 m with 8
+    keyframes and the port 0.067986 m with 7: the two-view init on frames
+    0-1 (a 0.08 m baseline) leaves the packages' points millimetres apart
+    and the keyframe decisions part later (ROADMAP C45).
     """
-    kw = dict(name="b", cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5,
-              fps=30.0, focal_x_baseline=0.0, depth_threshold=40.0, depthmap_factor=1.0)
-    cam = Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE, **kw)
-    frames, poses = synthetic_scene.make_sequence(np.random.default_rng(seed), cam, 40,
-                                                  step=0.08)
-    sizes = dict(max_keyframes=32, max_landmarks=8192, max_kf_interval=3,
-                 enable_loop_closing=False)
-    orb = dict(max_num_keypts=1000, num_levels=8)
-
-    def jax_system():
-        return JSystem(JConfig(camera=JCamera(setup=JSetup.MONOCULAR,
-                                              model=JModel.PERSPECTIVE, **kw),
-                               orb=JOrb(**orb), raw={}), **sizes)
-
-    def port_system():
-        return System(Config(camera=cam, orb=OrbParams(**orb), raw={}), device="cpu", **sizes)
-
-    jax_fe, port_fe = jax_system().frontend, port_system().frontend
-    like = {k: np.asarray(v) for k, v in jax_fe.mono(jnp.asarray(frames[0][0])).items()}
-    gt = [(float(i) / 30.0, np.concatenate([R, t[:, None]], 1).astype(np.float64))
-          for i, (R, t) in enumerate(poses)]
-    out = {}
-    for feats in ("jax", "port"):
-        for package in ("jax", "port"):
-            slam = jax_system() if package == "jax" else port_system()
-            if package != feats:
-                slam.frontend.mono = (_features_from(jax_fe, _jax_to_port) if feats == "jax"
-                                      else _features_from(port_fe, _port_to_jax(like)))
-            fed = _run(slam, frames)
-            first = next(i for i, p in enumerate(fed) if p is not None)
-            est = slam.frame_trajectory()
-            r = out[feats, package] = (
-                slam.tracking_state.value, [s[0] for s in slam._frame_stats if s[3]],
-                len(est), first, fed[first], slam.num_keyframes,
-                traj_io.ate_rmse(est, gt, align_scale=True))
-            print(f"seed {seed}, {feats} features, {package} System: state {r[0]}, lost "
-                  f"frames at {r[1]}, {r[2]} trajectory frames, first pose at frame {r[3]}, "
-                  f"{r[5]} keyframes, Sim3 ATE {r[6]:.6f} m")
-    for feats in ("jax", "port"):
-        a, b = out[feats, "jax"], out[feats, "port"]
-        assert a[3] == b[3], (feats, a[3], b[3])
-        assert np.abs(a[4] - b[4]).max() < 1e-3, (feats, a[4], b[4])
-    a, b = out["jax", "jax"], out["jax", "port"]
-    assert a[:3] == b[:3], (a[:3], b[:3])
+    a, b = _full_width_systems(seed)
+    assert a[:4] == b[:4], (a[:4], b[:4])
+    assert np.abs(a[4] - b[4]).max() < 1e-3, (a[4], b[4])
     assert abs(a[6] - b[6]) < 0.01, (a[6], b[6])
+
+
+@pytest.mark.slow
+def test_full_width_mono_seed42_parts_after_init():
+    """ROADMAP C45 on chip_smoke.py's gated monocular sequence (numpy seed
+    42) at full width: equal features, the same init frame pair and first
+    pose (1e-3), the same end state, then keyframe decisions that part
+    (printed). The port runs with 1, 2 and 3 torch threads, and its
+    keyframes move with the thread count too (torch's CPU reductions
+    split their sums by thread). Measured on this tree: the JAX System
+    Sim3 ATE 0.115389 m with its valid keyframes at frames 0, 11, 14, 28,
+    31, 34, 37; the port 0.083636 / 0.140687 / 0.139457 m with 7 / 9 / 8
+    keyframes. The JAX System misses tests/test_system_e2e.py's 0.08 m
+    bound here, which that test sets at 320x240; chip_smoke.py gates the
+    monocular path there (ROADMAP C17, C45)."""
+    a, *ports = _full_width_systems(42, threads=(1, 2, 3))
+    for b in ports:
+        assert a[0] == b[0] and a[3] == b[3], (a[:4], b[:4])
+        assert np.abs(a[4] - b[4]).max() < 1e-3, (a[4], b[4])

@@ -6,9 +6,9 @@ levels, 16 keyframes / 4096 landmarks, ``max_kf_interval=2``, loop
 closing off), each with the instance mask ``np.where(depth < 4.5, 1, 2)``.
 Per-frame poses must agree within 1e-3 m and 1e-3 rad, the keyframe,
 line and plane counts must be equal, and plane ownership must be equal on
-at least 99% of the landmarks. Landmarks are paired by position (nearest
-within 1 cm): the JAX System can make one landmark more or fewer at a
-keyframe, which shifts every later slot by one (ROADMAP C18).
+at least 99% of the landmarks paired by position (nearest within 1 cm),
+and slot by slot: with the frontends equal (ROADMAP C8) the two Systems
+fill the same landmark slots here (C32).
 
 The slow tests run the JAX package's PLP system tests
 (tests/test_planes.py::test_rgbd_plane_slam, tests/test_line_system.py's
@@ -138,10 +138,17 @@ def test_plp_counts_match_jax():
 
 
 def test_plp_plane_ownership_matches_jax():
+    """Ownership paired by position, and, with the frontends equal (ROADMAP
+    C8, C32), slot by slot: the same valid slots, positions within 1e-3
+    m and the same plane per slot."""
     js, _ = run_jax()
     ts, _, _, _ = run_port()
     jst, tst = js.state, ts.state
     vj, vt = np.asarray(jst.lm_valid), tst.lm_valid.numpy()
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_allclose(tst.lm_pos.numpy()[vj], np.asarray(jst.lm_pos)[vj], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_array_equal(tst.lm_plane.numpy()[vj], np.asarray(jst.lm_plane)[vj])
     d, ii = cKDTree(np.asarray(jst.lm_pos)[vj]).query(tst.lm_pos.numpy()[vt])
     paired = d < 1e-2
     assert paired.mean() > 0.99
@@ -321,3 +328,50 @@ def test_init_creates_planes_and_lines(package, setup):
     assert m["planes"] >= 1, m
     assert m["lines"] >= 1, m
     slam.shutdown()
+
+
+@pytest.mark.slow
+def test_full_width_mono_lines_matches_jax():
+    """chip_smoke.py's phase 12 (b) at full width on the CPU: monocular
+    points + lines at 640x480 (1000 keypoints over 8 levels), 16 frames
+    at 0.08 m a frame of the grid-textured scene (numpy seed 42),
+    ``max_kf_interval=3``, loop closing off; capacities cut to the JAX
+    test's 32 keyframes / 8192 landmarks. With the frontends bit-equal
+    (ROADMAP C8) both Systems initialize on the same frame pair and end
+    at the same Sim3 ATE within 1e-3 m (printed)."""
+    kw = dict(_KW, cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5)
+    frames, poses = None, None
+    out = {}
+    for package in ("jax", "port"):
+        if package == "jax":
+            cam = JCamera(setup=JSetup.MONOCULAR, model=JModel.PERSPECTIVE,
+                          focal_x_baseline=0.0, **kw)
+            slam = JSystem(JConfig(camera=cam, orb=JOrb(max_num_keypts=1000, num_levels=8),
+                                   raw={}), distributed_ba=False, max_keyframes=32,
+                           max_landmarks=8192, max_kf_interval=3, with_lines=True,
+                           enable_loop_closing=False)
+        else:
+            cam = Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE,
+                         focal_x_baseline=0.0, **kw)
+            slam = System(Config(camera=cam, orb=OrbParams(max_num_keypts=1000, num_levels=8),
+                                 raw={}), device="cpu", max_keyframes=32, max_landmarks=8192,
+                          max_kf_interval=3, with_lines=True, enable_loop_closing=False)
+        if frames is None:
+            tex = synthetic_scene.make_texture(np.random.default_rng(42), grid=True)
+            poses = synthetic_scene.trajectory(16, step=0.08)
+            frames = [(synthetic_scene.render(cam, tex, R, t)[0], i / 30.0)
+                      for i, (R, t) in enumerate(poses)]
+        slam.startup()
+        for img, ts in frames:
+            slam.feed_monocular_frame(img, ts)
+        slam.shutdown()
+        est = slam.frame_trajectory()
+        out[package] = (slam.tracking_state.value, round(est[0][0] * 30), _ate(slam, poses, True),
+                        int(slam.next_line), slam.num_keyframes)
+        print(f"{package} System: state {out[package][0]}, trajectory from frame "
+              f"{out[package][1]}, Sim3 ATE {out[package][2]:.6f} m, lines created "
+              f"{out[package][3]}, keyframes {out[package][4]}")
+    j, t = out["jax"], out["port"]
+    assert t[0] == j[0] == "Tracking"
+    assert t[1] == j[1] and t[3] == j[3] and t[4] == j[4], (j, t)
+    assert abs(t[2] - j[2]) < 1e-3, (j, t)

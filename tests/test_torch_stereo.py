@@ -6,10 +6,9 @@ right camera at ``t - [b, 0, 0]``, as tests/test_stereo_system.py renders
 them), 600 keypoints over 4 levels. ``match_stereo`` takes the JAX
 extractor's keypoints of both images in both packages: ``ok`` masks equal,
 ``xr`` within 1e-3 px, depth within 1e-4 relative. ``Frontend.stereo``
-runs each package's own extractor (descriptors differ on ~0.5% of the
-keypoints above level 0, tests/test_torch_frontend.py), so its ``ok``
-masks agree on >= 99% of the slots and ``xr`` within 1e-3 px where both
-matched. The rectifier's maps are the same numpy code (exact); the
+runs each package's own extractor, whose features are equal
+(tests/test_torch_frontend.py), so its ``ok`` masks are equal and ``xr``
+within 1e-3 px where both matched (the SAD's f32 sums, ROADMAP C29). The rectifier's maps are the same numpy code (exact); the
 remapped images agree within 1e-3 grey levels. The System test runs both
 Systems on 6 pairs: per-frame poses within 1e-3 m / 1e-3 rad, equal
 keyframe counts, landmark counts within 2%.
@@ -117,7 +116,7 @@ def test_frontend_stereo_parity():
     ft = tfrontend.Frontend(TCAM, OrbParams(**ORB), pad_to=cap, device="cpu").stereo(
         left, right)
     okj, okt = np.asarray(fj["xr"]) >= 0, ft["xr"].numpy() >= 0
-    assert (okj == okt).mean() >= 0.99
+    assert (okj == okt).all()
     both = okj & okt
     assert both.sum() > 200
     assert np.abs(ft["xr"].numpy()[both] - np.asarray(fj["xr"])[both]).max() < 1e-3
