@@ -38,13 +38,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    frames in the trajectory, Sim3-aligned ATE < 0.08 m; the same sequence
    at the main path's width (mono: 40 frames): TRACKING, >= 30 frames in
    the trajectory, Sim3-aligned ATE < 0.2 m (MONO_FULL_WIDTH_ATE: the JAX
-   System ends at 0.115389 m there on the CPU, the port at 0.083636 to
-   0.140687 m over 1-3 torch threads, ROADMAP C45); the seed-0 and seed-1 sequences (12
+   System ends at 0.115389 m there on the CPU, the port at 0.134512 m
+   at any torch thread count, ROADMAP C45); the seed-0 and seed-1 sequences (12
    frames each) reported (the JAX System's CPU runs are
    tests/test_torch_mono.py's slow tests'); driven with fixed summation
    orders (deterministic()), so that a run gives one result;
 8. the stereo path: 40 rendered pairs, 0.1 m baseline; TRACKING, tracked
-   >= 39, > 200 landmarks, ATE < 0.06 m;
+   >= 39, > 200 landmarks, ATE < 0.06 m; (b, after 10) the same path at
+   two dataset cameras, each from its YAML (DATASET_CAMERAS): EuRoC's
+   752x480 (1000 keypoints, 1,032 slots; the rendered pairs are
+   rectified, so its StereoRectifier node is left out) and KITTI
+   odometry's 1241x376 (2000 keypoints, 2,040 slots, a 0.537 m baseline),
+   24 pairs of phase 8's scene each (plane widened to the wider views),
+   K = 256, L = 32768: TRACKING, tracked >= 23, > 200 landmarks, ATE <
+   0.06 m, the matcher checks of phase 4, peak device memory; the KITTI
+   path's last stage-1 and stage-2 inputs timed with phase 11's;
 9. relocalization, two blackouts (LOST after two black frames, TRACKING
    after a frame shown again, the relocalizer run on each lost frame,
    the centre within 0.08 m of its ground truth): tests/test_loop_system
@@ -64,7 +72,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    largest feed time over the median are printed; validate and correct
    must run on different fed frames (tests/test_loop_latency.py's
    structural half; its 25x latency bound is reported, not gated);
-   Each of 4, 7-12 and 18 runs at the main path's width (but the gated
+   Each of 4, 7-12 and 18 runs at the main path's width (8 (b) at its
+   own cameras; but the gated
    monocular cases of phases 7 and 12) with the kernel's
    counts set to 0 before it and read after, and fails unless every
    matcher call of the path (three per track_frame, the relocalizer's
@@ -78,7 +87,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    >= 4 lines with > 60% of their endpoints within 0.4 m of the scene's
    planes, >= 1 plane, each |n_z| > 0.98 with an offset within 0.3 m of
    3.5 or 6, > 30 plane-owned landmarks, every line and plane stage run),
-   then profiled like phase 6 and one frame's host syncs counted;
+   then profiled like phase 6 (over two frames) and one frame's host
+   syncs counted;
    monocular + lines (gated at the JAX test's 320x240, reported at full
    width; the JAX System's full-width result on the CPU is
    tests/test_torch_plp_system.py's slow test's) and stereo + lines (TRACKING, >= 4 lines, > 60% near the
@@ -144,7 +154,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    descriptors printed; (b) knob_checks: public parameters at
    non-default values on the card against the CPU (essential_ransac
    num_hypotheses=64, sim3_ransac fix_scale=True, match_stereo window=7
-   patch=3, Relocalizer min_inliers=30 on phase 4's map);
+   patch=3, Relocalizer min_inliers=30 on phase 4's map); (c)
+   dataset_frontends: the frontend's pyramid and atlas bit-equal,
+   ic_angles within 2 ulp and the extractor's slots equal (angles within
+   2 ulp, the share of equal descriptors printed) on the first left frame
+   of each of phase 8 (b)'s cameras;
 20. one JSON line with each path's numbers, one with the rectifier's, one
    with phase 19's, one with every kernel's numbers (launches per path
    added), the card line, and the result line ``{"ok": true, "device":
@@ -157,6 +171,8 @@ to the CPU and imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
+import gc
 import json
 import os
 import subprocess
@@ -188,10 +204,10 @@ SOURCE = "structure_plp_slam_tpu_torch/csrc/fused_match.cu"
 NUM_FRAMES = 40
 REPORTED_MONO_FRAMES = 12  # phase 7's reported seeds (0 and 1)
 # Phase 7's bound on the full-width monocular run's Sim3 ATE (m): on the CPU
-# the JAX System ends at 0.115389 and the port, whose f32 init solve follows
-# the torch thread count, at 0.083636 / 0.140687 / 0.139457 with 1 / 2 / 3
-# threads (ROADMAP C45); 0.2 holds a run that tracks as the reference does
-# and fails one that drifts.
+# the JAX System ends at 0.115389 and the port at 0.134512 (at any torch
+# thread count; their f32 init solves part on a 0.08 m baseline, ROADMAP
+# C45); 0.2 holds a run that tracks as the reference does and fails one
+# that drifts.
 MONO_FULL_WIDTH_ATE = 0.2
 PLP_FRAMES = 24    # phase 12 (a)
 LINE_FRAMES = 16   # phase 12 (b) and (c)
@@ -767,9 +783,9 @@ def path_numbers(name, fm, recorder, slam, base, n_items, tracked, wall, plain=N
     return run
 
 
-def ate_of(traj_io, slam, poses, align_scale):
-    """ATE of the frame trajectory against poses fed at 30 fps."""
-    gt = [(float(i) / 30.0, np.concatenate([R, t[:, None]], 1)) for i, (R, t) in enumerate(poses)]
+def ate_of(traj_io, slam, poses, align_scale, fps=30.0):
+    """ATE of the frame trajectory against poses fed at ``fps``."""
+    gt = [(float(i) / fps, np.concatenate([R, t[:, None]], 1)) for i, (R, t) in enumerate(poses)]
     return traj_io.ate_rmse(slam.frame_trajectory(), gt, align_scale=align_scale)
 
 
@@ -1022,6 +1038,122 @@ def other_paths(fm, cam, cfg, N, device="cuda", capacities=(256, 32768)):
     gate("growth", ate < 0.05, f"ATE {ate} >= 0.05 m")
     runs["growth"] = r
     return runs
+
+
+# Phase 8 (b)'s dataset cameras as their YAML gives them (run.py's euroc
+# and kitti subcommands read such files). EuRoC: the reference's
+# example/euroc/EuRoC_stereo.yaml (tests/test_rectify.py), without its
+# StereoRectifier node, since the rendered pairs are rectified already.
+# KITTI: OpenVSLAM's example/kitti/KITTI_stereo_00-02.yaml.
+DATASET_CAMERAS = {
+    "stereo_euroc": """Camera.name: "EuRoC stereo"
+Camera.setup: "stereo"
+Camera.model: "perspective"
+Camera.fx: 435.2046959714599
+Camera.fy: 435.2046959714599
+Camera.cx: 367.4517211914062
+Camera.cy: 252.2008514404297
+Camera.fps: 20.0
+Camera.cols: 752
+Camera.rows: 480
+Camera.focal_x_baseline: 47.90639384423901
+Feature.max_num_keypoints: 1000
+Feature.num_levels: 8
+Feature.scale_factor: 1.2
+""",
+    "stereo_kitti": """Camera.name: "KITTI stereo 00-02"
+Camera.setup: "stereo"
+Camera.model: "perspective"
+Camera.fx: 718.856
+Camera.fy: 718.856
+Camera.cx: 607.1928
+Camera.cy: 185.2157
+Camera.fps: 10.0
+Camera.cols: 1241
+Camera.rows: 376
+Camera.focal_x_baseline: 386.1448
+depth_threshold: 40
+Feature.max_num_keypoints: 2000
+Feature.num_levels: 8
+Feature.scale_factor: 1.2
+""",
+}
+DATASET_FRAMES = 24
+# The renderer's plane half-width at the dataset cameras: at KITTI's ~82
+# degrees across (EuRoC's ~80) the default 5 m plane at z = 6 ends inside
+# the view, and its clamped edge texels give the stereo matcher nothing.
+DATASET_PLANE_HALF = 8.0
+
+
+def dataset_config(name):
+    """Phase 8 (b)'s Config for ``name`` of DATASET_CAMERAS, through the
+    port's YAML loader."""
+    from structure_plp_slam_tpu_torch.config import load_config
+
+    return load_config(yaml_text=DATASET_CAMERAS[name])
+
+
+def dataset_pairs(cam, n=DATASET_FRAMES):
+    """Phase 8's scene at ``cam``: its texture (numpy seed 0) and
+    trajectory, the right view at ``t - [b, 0, 0]`` (b = focal_x_baseline
+    / fx), ``n`` pairs stamped at the camera's fps; and the poses."""
+    from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+    b = cam.focal_x_baseline / cam.fx
+    tex = synthetic_scene.make_texture(np.random.default_rng(0))
+    poses = synthetic_scene.trajectory(n)
+    pairs = []
+    for i, (R, t) in enumerate(poses):
+        left, _ = synthetic_scene.render(cam, tex, R, t, plane_half=DATASET_PLANE_HALF)
+        right, _ = synthetic_scene.render(cam, tex, R, t - np.array([b, 0.0, 0.0]),
+                                          plane_half=DATASET_PLANE_HALF)
+        pairs.append((left, right, float(i) / cam.fps))
+    return pairs, poses
+
+
+def dataset_stereo_paths(fm, capacities=(256, 32768), device="cuda"):
+    """Phase 8 (b): ``System.feed_stereo_frame`` at the EuRoC and KITTI
+    cameras (DATASET_CAMERAS: 752x480 with 1000 keypoints, 1241x376 with
+    2000, 8 levels at 1.2; the keypoint slots 1,032 and 2,040), 24 pairs
+    of phase 8's scene each, at K = 256 and L = 32768, driven as phase 8
+    is: TRACKING, tracked >= 23, > 200 landmarks, ATE < 0.06 m, every
+    matcher call on the kernel and equal to its plain twin. Returns each
+    path's numbers (peak device memory in its gates) and the KITTI path's
+    last stage-1 and stage-2 matcher inputs, for timing."""
+    from structure_plp_slam_tpu_torch.io import trajectory as traj_io
+    from structure_plp_slam_tpu_torch.models import mapper, tracker
+    from structure_plp_slam_tpu_torch.system import System, TrackerState
+
+    runs, inputs = {}, {}
+    for name in DATASET_CAMERAS:
+        cfg = dataset_config(name)
+        cam = cfg.camera
+        pairs, poses = dataset_pairs(cam)
+        slam = System(cfg, max_keyframes=capacities[0], max_landmarks=capacities[1],
+                      enable_loop_closing=False, verbose_timing=True, device=device)
+        rec = SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to)
+        gc.collect()  # the earlier paths' Systems out of the peak
+        torch.cuda.reset_peak_memory_stats()
+        r = drive_path(name, fm, rec, slam, lambda s, f: s.feed_stereo_frame(f[0], f[1], f[2]),
+                       pairs)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        ate = ate_of(traj_io, slam, poses, align_scale=False, fps=cam.fps)
+        r["gates"] = {"ate_m": ate, "peak_mib": peak_mib, "camera": f"{cam.cols}x{cam.rows}",
+                      "keypoint_slots": slam.frontend.pad_to,
+                      "baseline_m": cam.focal_x_baseline / cam.fx}
+        print(f"path {name}: {cam.cols}x{cam.rows}, {slam.frontend.pad_to} keypoint slots, "
+              f"baseline {cam.focal_x_baseline / cam.fx:.4f} m, ATE {ate:.6f} m; peak "
+              f"torch.cuda.max_memory_allocated {peak_mib:.1f} MiB")
+        n = len(pairs)
+        gate(name, r["state"] == TrackerState.TRACKING.value, f"ended in state {r['state']}")
+        gate(name, r["tracked"] >= n - 1, f"tracked {r['tracked']} of {n}")
+        gate(name, r["landmarks"] > 200, f"{r['landmarks']} landmarks")
+        gate(name, ate < 0.06, f"ATE {ate} >= 0.06 m")
+        runs[name] = r
+        if name == "stereo_kitti":
+            inputs = {f"{name} {site}": rec.inputs_at(site)[-1]
+                      for site in ("track_stage1", "track_stage2")}
+    return runs, inputs
 
 
 def inject_drift(slam):
@@ -1370,6 +1502,101 @@ def ulps(a, b):
     return int((ia - ib).abs().max().item())
 
 
+def card_vs_cpu(res, device, name, fn, *args, exact=True, atol=None, **kw):
+    """``fn`` on the CPU and on ``device`` with the same inputs; every
+    output compared (exact, within ``atol``, or within 1e-5 relative to
+    max(|x|, 1)); the largest difference goes to ``res[name]``."""
+    host = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    card = [a.to(device) if torch.is_tensor(a) else a for a in args]
+    outs = fn(*host, **kw), fn(*card, **kw)
+    outs = [o if isinstance(o, (tuple, list)) else (o,) for o in outs]
+    err = 0.0
+    for c, d in zip(*outs, strict=True):
+        d = d.cpu()
+        if c.shape != d.shape or c.dtype != d.dtype:
+            raise AssertionError(f"public op {name}: {c.shape} {c.dtype} on the CPU, "
+                                 f"{d.shape} {d.dtype} on the card")
+        if exact:
+            if not torch.equal(c, d):
+                raise AssertionError(f"public op {name}: {int((c != d).sum())} entries "
+                                     f"differ between the card and the CPU")
+            continue
+        diff = (d - c).abs()
+        scale = torch.ones_like(c) if atol is not None else c.abs().clamp(min=1.0)
+        limit = atol if atol is not None else 1e-5
+        worst = float((diff / scale).max().item()) if c.numel() else 0.0
+        if not worst <= limit:
+            raise AssertionError(f"public op {name}: card off the CPU by {worst:.3e} "
+                                 f"(bound {limit:.0e})")
+        err = max(err, float(diff.max().item()) if c.numel() else 0.0)
+    res[name] = err
+    print(f"public op {name}: card == CPU ({'exact' if exact else f'max abs diff {err:.3e}'})")
+
+
+def frontend_card_vs_cpu(res, both, img, n_kps, rng, label, device="cuda"):
+    """The frontend's arithmetic on the f32 frame ``img``, card against
+    CPU (ROADMAP C8): the 8-level pyramid and atlas bit-equal (``both``:
+    card_vs_cpu into ``res``); ic_angles at 1000 random points within 2
+    ulp (the one place the devices compute differently: glibc's atan2f /
+    cosf / sinf on the CPU, torch's CUDA functions on the card); the
+    extractor with ``n_kps`` keypoints over 8 levels: slots equal, angles
+    within 2 ulp, the share of equal descriptors printed (a sample that
+    an ulp of angle moves across a pixel's rounding edge flips a bit).
+    Returns the random points and the CPU's angles there."""
+    from structure_plp_slam_tpu_torch.ops import image, orb
+
+    H, W = img.shape
+    both("build_pyramid 8 levels x1.2", lambda im: image.build_pyramid(im, 8, 1.2), img)
+    shapes = image.pyramid_shapes(H, W, 8, 1.2)
+    offs, Ha, Wa = image.atlas_layout(shapes)
+    both("build_atlas 8 levels x1.2", lambda im: image.build_atlas(im, shapes, offs, Ha, Wa), img)
+
+    xy = torch.from_numpy(np.stack([rng.uniform(orb.EDGE_MARGIN, W - orb.EDGE_MARGIN, 1000),
+                                    rng.uniform(orb.EDGE_MARGIN, H - orb.EDGE_MARGIN, 1000)],
+                                   1).astype(np.float32))
+    host_ang = orb.ic_angles(img, xy)
+    card_ang = orb.ic_angles(img.to(device), xy.to(device)).cpu()
+    res["ic_angles_max_ulp"] = ulps(host_ang, card_ang)
+    res["ic_angles_equal_share"] = float((host_ang == card_ang).double().mean())
+    print(f"public op ic_angles ({label}): card within {res['ic_angles_max_ulp']} ulp of the "
+          f"CPU (equal on {res['ic_angles_equal_share']:.4f})")
+    gate("public_ops", res["ic_angles_max_ulp"] <= 2,
+         f"ic_angles {res['ic_angles_max_ulp']} ulp off the CPU ({label})")
+
+    ex = orb.OrbExtractor(H, W, orb.OrbParams(max_num_keypts=n_kps, num_levels=8))
+    fh, fc = ex(img), {k: v.cpu() for k, v in ex(img.to(device)).items()}
+    for k in ("xy", "level", "valid", "response"):
+        if not torch.equal(fh[k], fc[k]):
+            raise AssertionError(f"OrbExtractor {k}: the card differs from the CPU ({label})")
+    v = fh["valid"]
+    res["extractor_keypoints"] = int(v.sum())
+    res["extractor_angle_max_ulp"] = ulps(fh["angle"][v], fc["angle"][v])
+    res["extractor_angles_equal_share"] = float((fh["angle"] == fc["angle"])[v].double().mean())
+    res["extractor_desc_equal_share"] = float((fh["desc"] == fc["desc"]).all(1)[v].double().mean())
+    print(f"OrbExtractor on {label} ({W}x{H}, {int(v.sum())} keypoints): slots equal; "
+          f"angles within {res['extractor_angle_max_ulp']} ulp (equal on "
+          f"{res['extractor_angles_equal_share']:.4f}); descriptors equal on "
+          f"{res['extractor_desc_equal_share']:.4f}")
+    gate("public_ops", res["extractor_angle_max_ulp"] <= 2,
+         f"extractor angles {res['extractor_angle_max_ulp']} ulp off the CPU ({label})")
+    return xy, host_ang
+
+
+def dataset_frontends(device="cuda"):
+    """Phase 19 (c): frontend_card_vs_cpu at phase 8 (b)'s two cameras,
+    on each one's first left frame. Returns each camera's numbers."""
+    out = {}
+    for name in DATASET_CAMERAS:
+        cfg = dataset_config(name)
+        pairs, _ = dataset_pairs(cfg.camera, 1)
+        img = torch.from_numpy(np.ascontiguousarray(pairs[0][0], dtype=np.float32))
+        res = out[name] = {}
+        frontend_card_vs_cpu(res, functools.partial(card_vs_cpu, res, device), img,
+                             cfg.orb.max_num_keypts, np.random.default_rng(19),
+                             f"{name}'s first left frame", device)
+    return out
+
+
 def public_ops(cam, frame, device="cuda"):
     """Phase 19: the port's public functions that no path calls, each on
     ``device`` against the same call on the CPU, at the main path's
@@ -1385,36 +1612,7 @@ def public_ops(cam, frame, device="cuda"):
 
     rng = np.random.default_rng(19)
     res = {}
-
-    def both(name, fn, *args, exact=True, atol=None, **kw):
-        """``fn`` on the CPU and on ``device`` with the same inputs; every
-        output compared (exact, within ``atol``, or within 1e-5 relative
-        to max(|x|, 1))."""
-        host = [a.cpu() if torch.is_tensor(a) else a for a in args]
-        card = [a.to(device) if torch.is_tensor(a) else a for a in args]
-        outs = fn(*host, **kw), fn(*card, **kw)
-        outs = [o if isinstance(o, (tuple, list)) else (o,) for o in outs]
-        err = 0.0
-        for c, d in zip(*outs, strict=True):
-            d = d.cpu()
-            if c.shape != d.shape or c.dtype != d.dtype:
-                raise AssertionError(f"public op {name}: {c.shape} {c.dtype} on the CPU, "
-                                     f"{d.shape} {d.dtype} on the card")
-            if exact:
-                if not torch.equal(c, d):
-                    raise AssertionError(f"public op {name}: {int((c != d).sum())} entries "
-                                         f"differ between the card and the CPU")
-                continue
-            diff = (d - c).abs()
-            scale = torch.ones_like(c) if atol is not None else c.abs().clamp(min=1.0)
-            limit = atol if atol is not None else 1e-5
-            worst = float((diff / scale).max().item()) if c.numel() else 0.0
-            if not worst <= limit:
-                raise AssertionError(f"public op {name}: card off the CPU by {worst:.3e} "
-                                     f"(bound {limit:.0e})")
-            err = max(err, float(diff.max().item()) if c.numel() else 0.0)
-        res[name] = err
-        print(f"public op {name}: card == CPU ({'exact' if exact else f'max abs diff {err:.3e}'})")
+    both = functools.partial(card_vs_cpu, res, device)
 
     H, W = cam.rows, cam.cols
     img = torch.from_numpy(np.ascontiguousarray(frame, dtype=np.float32))
@@ -1435,54 +1633,20 @@ def public_ops(cam, frame, device="cuda"):
 
     # The frontend's own arithmetic: the same function on both devices
     # (ROADMAP C8). Pyramid, atlas, moment maps and blurs bit-equal.
-    both("build_pyramid 8 levels x1.2", lambda im: image.build_pyramid(im, 8, 1.2), img)
+    xy, host_ang = frontend_card_vs_cpu(res, both, img, 1000, rng, "the main path's frame",
+                                        device)
     shapes = image.pyramid_shapes(H, W, 8, 1.2)
-    offs, Ha, Wa = image.atlas_layout(shapes)
-    both("build_atlas 8 levels x1.2", lambda im: image.build_atlas(im, shapes, offs, Ha, Wa), img)
-    atlas = image.build_atlas(img, shapes, offs, Ha, Wa)
+    atlas = image.build_atlas(img, shapes, *image.atlas_layout(shapes))
     both("ic_moment_maps", orb.ic_moment_maps, img)
     both("ic_moment_maps (the extractor's fused order, atlas)",
          lambda a: orb._moment_maps(a, fused=True), atlas)
     both("gaussian_blur", image.gaussian_blur, img)
     both("blur (the extractor's fused order, atlas)", lambda a: image._blur(a, 7, 2.0, True),
          atlas)
-
     m = tuple(t.clone() for t in orb.ic_moment_maps(img))
-    xy = torch.from_numpy(np.stack([rng.uniform(orb.EDGE_MARGIN, W - orb.EDGE_MARGIN, 1000),
-                                    rng.uniform(orb.EDGE_MARGIN, H - orb.EDGE_MARGIN, 1000)],
-                                   1).astype(np.float32))
-    # The one place the devices compute differently: glibc's atan2f /
-    # cosf / sinf on the CPU, torch's CUDA functions on the card.
-    host_ang = orb.ic_angles(img, xy)
-    card_ang = orb.ic_angles(img.to(device), xy.to(device)).cpu()
-    res["ic_angles_max_ulp"] = ulps(host_ang, card_ang)
-    res["ic_angles_equal_share"] = float((host_ang == card_ang).double().mean())
-    print(f"public op ic_angles: card within {res['ic_angles_max_ulp']} ulp of the CPU "
-          f"(equal on {res['ic_angles_equal_share']:.4f})")
-    gate("public_ops", res["ic_angles_max_ulp"] <= 2,
-         f"ic_angles {res['ic_angles_max_ulp']} ulp off the CPU")
     both("ic_angles (same moment maps)", lambda im, k, m10, m01: orb.ic_angles(
         im, k, moments=(m10, m01)), img, xy, *m, exact=False, atol=1e-5)
     both("brief_descriptors", orb.brief_descriptors, image.gaussian_blur(img), xy, host_ang)
-
-    # The extractor on the main path's frame: slots equal; angles within
-    # 2 ulp; the share of equal descriptors printed (a sample that an ulp
-    # of angle moves across a pixel's rounding edge flips a bit).
-    ex = orb.OrbExtractor(H, W, orb.OrbParams(max_num_keypts=1000, num_levels=8))
-    fh, fc = ex(img), {k: v.cpu() for k, v in ex(img.to(device)).items()}
-    for k in ("xy", "level", "valid", "response"):
-        if not torch.equal(fh[k], fc[k]):
-            raise AssertionError(f"OrbExtractor {k}: the card differs from the CPU")
-    v = fh["valid"]
-    res["extractor_angle_max_ulp"] = ulps(fh["angle"][v], fc["angle"][v])
-    res["extractor_angles_equal_share"] = float((fh["angle"] == fc["angle"])[v].double().mean())
-    res["extractor_desc_equal_share"] = float((fh["desc"] == fc["desc"]).all(1)[v].double().mean())
-    print(f"OrbExtractor on the main path's frame ({int(v.sum())} keypoints): slots equal; "
-          f"angles within {res['extractor_angle_max_ulp']} ulp (equal on "
-          f"{res['extractor_angles_equal_share']:.4f}); descriptors equal on "
-          f"{res['extractor_desc_equal_share']:.4f}")
-    gate("public_ops", res["extractor_angle_max_ulp"] <= 2,
-         f"extractor angles {res['extractor_angle_max_ulp']} ulp off the CPU")
 
     X = np.stack([rng.uniform(-3, 3, 1000), rng.uniform(-2, 2, 1000), rng.uniform(0.5, 12, 1000)],
                  1)
@@ -1717,9 +1881,11 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
     gate("plp", pv.sum() >= 1 and all(planes_ok), f"planes {coefs.tolist()}")
     gate("plp", owned > 30, f"{owned} plane-owned landmarks")
     gate("plp", all(r["line_stage_count"].values()), "a line or plane stage never ran")
+    # Two traced frames (one keyframe chain at the interval of 2): each
+    # traced frame costs ~15 s of event parsing on the host.
     r["profile"] = profile_frames(
         lambda verbose_timing: system(cfg, verbose_timing, max_kf_interval=PLP_KF_INTERVAL),
-        frames, warm=4, count=4, feed=plp_feed, label="profile plp")
+        frames, warm=4, count=2, feed=plp_feed, label="profile plp")
     r["syncs_per_frame"] = count_syncs(
         lambda: system(cfg, False, max_kf_interval=PLP_KF_INTERVAL), frames, plp_feed)
     # The default-off surfaces (publishers, autosave, viewers) add none.
@@ -2564,14 +2730,38 @@ def main():
     runs = {"rgbd": rgbd, **other_paths(fm, cam, cfg, N)}
     phase_done("7-10")
 
+    # ---- 8 (b). the stereo path at the EuRoC and KITTI cameras ---------------
+    dataset_runs, kitti_inputs = dataset_stereo_paths(fm)
+    runs.update(dataset_runs)
+    timed.update(kitti_inputs)
+    phase_done("8 (b)")
+
     # ---- 11. loop closing ---------------------------------------------------
     runs["loop"], loop_args, _ = loop_path(fm, cam, cfg, N)
     timed["loop_fuse"] = loop_args
     torch.save({k: tuple(a.cpu() for a in v) for k, v in timed.items()}, INPUTS)
+    child = time_in_child(["loop_fuse", *kitti_inputs])
     kernels.append(kernel_entry(  # the dense synthetic input of fuse's shape beside it
-        "loop_fuse", loop_args, time_in_child(["loop_fuse"])["loop_fuse"],
+        "loop_fuse", loop_args, child["loop_fuse"],
         runs["loop"]["site_launches"]["loop_fuse"], runs["loop"]["max_abs_err_by_site"]
         .get("loop_fuse", 0.0), "fuse"))
+    # The kernel at KITTI's 2,040 keypoint slots (phase 8 (b)'s last call
+    # at each tracker site), beside the main path's 1,032 in the kernels line.
+    kitti = runs["stereo_kitti"]["kernel_timing"] = {}
+    for key, args in kitti_inputs.items():
+        t = child[key]
+        b_ms, b_by, active, pairs = bound(fm, args)
+        kitti[key.split()[1]] = {"shape": list(args[0].shape[:1]) + [args[2].shape[0]],
+                                 "active_rows": active, "in_window_pairs": pairs,
+                                 "ms": t["kernel_ms"], "records": t["kernel_records"],
+                                 "plain_ms": t["plain_ms"], "call_ms": t["kernel_call_ms"],
+                                 "bound_ms": b_ms, "bound_by": b_by,
+                                 "yardstick_ms": t["yardstick_ms"]}
+        print(f"{key}: {args[0].shape[0]}x{args[2].shape[0]} ({active} active rows, {pairs} "
+              f"in-window pairs): device kernel {t['kernel_ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f} ms ({t['kernel_records']} / {t['plain_records']} "
+              f"records), yardstick {t['yardstick_ms']:.5f} ms, bound {b_ms:.6f} ms ({b_by}); "
+              f"one call {t['kernel_call_ms']:.4f} ms")
 
     phase_done("11")
 
@@ -2604,6 +2794,7 @@ def main():
     # ---- 19. the public functions no path calls ------------------------------
     ops = public_ops(cam, frames[0][0])
     ops["knobs"] = knob_checks(cam, slam, frames)
+    ops["dataset_frontends"] = dataset_frontends()
     phase_done("19")
     for k in kernels:
         site = k["name"].split("@")[1]
@@ -2615,7 +2806,8 @@ def main():
                                          "launches", "max_abs_err", "stage_median_ms",
                                          "max_keyframes", "max_landmarks", "gates")
                  + tuple(k for k in ("line_stage_median_ms", "profile", "syncs_per_frame",
-                                     "plain_calls", "io", "cli", "mesh_solves") if k in r)}
+                                     "plain_calls", "io", "cli", "mesh_solves",
+                                     "kernel_timing") if k in r)}
              for p, r in runs.items()}
     print(json.dumps({"paths": paths}))
     print(json.dumps({"rectify_fisheye": rectify}))

@@ -25,6 +25,7 @@ blocks.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -33,7 +34,7 @@ from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.ops import lie, linalg, robust
 from structure_plp_slam_tpu_torch.ops import line_geometry as lg
 from structure_plp_slam_tpu_torch.ops.linalg import inv3x3
-from structure_plp_slam_tpu_torch.utils.types import rdiv
+from structure_plp_slam_tpu_torch.utils.types import fixed_order_sum, rdiv
 
 
 class BAProblem(NamedTuple):
@@ -251,7 +252,8 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
         )
         Hll_inv = inv3x3(Hll + lam_l * eye3)
         WHinv = torch.einsum("mcij,mjk->mcik", W, Hll_inv)        # [M, C, 6, 3]
-        S_red = torch.einsum("mcik,mdjk->cdij", WHinv, W)         # [C, C, 6, 6]
+        S_red = fixed_order_sum(functools.partial(torch.einsum, "...mcik,...mdjk->...cdij"),
+                                WHinv, W)                         # [C, C, 6, 6]
         eye_cc = torch.eye(C, **f32)[:, :, None, None]
         S = -S_red + eye_cc * Hcc[:, None]
         rhs = bc - torch.einsum("mcik,mk->ci", WHinv, bl)         # [C, 6]
@@ -274,12 +276,9 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
         S = S + eye_cc * (diag_scale[:, None, None] * eye6)[:, None]
         rhs = rhs * free_f[:, None]
 
-        S_dense = S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
-        L_chol, info = torch.linalg.cholesky_ex(S_dense)
-        dx_c = torch.cholesky_solve(rhs.reshape(6 * C, 1), L_chol).reshape(C, 6)
         # A failed factorization gives NaNs (as jax's cho_factor does), and
         # the finite check below then rejects the whole step.
-        dx_c = torch.where(info == 0, dx_c, torch.nan)
+        dx_c = linalg.block_cholesky_solve(S, rhs)
 
         # Back-substitute landmarks: dX = Hll^-1 (bl - W^T dx_c).
         Wt_dxc = torch.einsum("mcij,ci->mj", W, dx_c)

@@ -15,6 +15,7 @@ Analytic Jacobians (left-multiplicative se(3) update, translation first):
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -22,7 +23,7 @@ import torch
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.ops import lie, robust
 from structure_plp_slam_tpu_torch.ops import linalg as linalg_ops
-from structure_plp_slam_tpu_torch.utils.types import rdiv
+from structure_plp_slam_tpu_torch.utils.types import fixed_order_sum, rdiv
 
 
 class PoseOptResult(NamedTuple):
@@ -31,6 +32,14 @@ class PoseOptResult(NamedTuple):
     inliers: torch.Tensor      # [(B,) N] bool
     num_inliers: torch.Tensor  # [(B,)] i64
     chi2: torch.Tensor         # [(B,)] f32 total weighted error over inliers
+
+
+# The normal equations' sums over the observations (``...``: the blocks
+# of ``fixed_order_sum`` on the CPU).
+_EIN_H2 = functools.partial(torch.einsum, "...bnri,...bnrj->...bij")
+_EIN_H3 = functools.partial(torch.einsum, "...bni,...bnj->...bij")
+_EIN_G2 = functools.partial(torch.einsum, "...bnri,...bnr->...bi")
+_EIN_G3 = functools.partial(torch.einsum, "...bni,...bn->...bi")
 
 
 def _safe_z(z):
@@ -104,13 +113,12 @@ def optimize_pose(camera, R0, t0, points_w, obs_uv, obs_xr, inv_sigma_sq, valid,
             w_st = torch.where(has_stereo, w, zero)
 
             Jw2 = J2 * w[..., None, None]
-            H = torch.einsum("bnri,bnrj->bij", Jw2, J2) + torch.einsum(
-                "bni,bnj->bij", J3r * w_st[..., None], J3r
-            )
-            g = -(
-                torch.einsum("bnri,bnr->bi", Jw2, r_uv)
-                + torch.einsum("bni,bn->bi", J3r * w_st[..., None], r_xr)
-            )
+            J3w = J3r * w_st[..., None]
+            # Sums over the N observations, in one order on the CPU.
+            H = fixed_order_sum(_EIN_H2, Jw2, J2, dim=1) + fixed_order_sum(
+                _EIN_H3, J3w, J3r, dim=1)
+            g = -(fixed_order_sum(_EIN_G2, Jw2, r_uv, dim=1)
+                  + fixed_order_sum(_EIN_G3, J3w, r_xr, dim=1))
             H_lm = H + lam[:, None, None] * torch.diag_embed(
                 torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-6)
             )

@@ -14,6 +14,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.logging import get_logger
+
+_log = get_logger("torch.image")
+
 
 def to_grayscale(img, device=None):
     """uint8/f32 ``[H, W]``, ``[H, W, 1]`` or ``[H, W, 3]`` (RGB) -> f32 ``[H, W]``."""
@@ -45,60 +49,168 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 # ``(h, W, w)``. XLA:CPU hands the dot to YNNPACK, which picks a kernel per
 # shape, so no rule over the shape gives the order; these entries are
 # measured, one per product of every pyramid level and half-resolution
-# line pass the port's cameras and tests use (``python -m
-# tests.xla_dot_orders`` regenerates them, ``tests/test_torch_frontend.py::
-# test_resize_summation_order`` holds each against XLA). An order is
-# ``(lanes, tree, split)``: tap k goes to accumulator k % lanes, each
-# accumulator one fused multiply-add chain in increasing k; the
+# line pass the port's cameras and tests use, those that take
+# ``_DEFAULT_ORDER`` too (``python -m
+# tests.xla_dot_orders`` regenerates them, ``test_resize_summation_order``
+# in tests/test_torch_frontend.py and tests/test_torch_dataset_cameras.py
+# holds each against XLA). An order is
+# ``(lanes, tree, split, tail)``: tap k goes to accumulator k % lanes,
+# each accumulator one fused multiply-add chain in increasing k; the
 # accumulators are added in pairs ((a0 + a1) + (a2 + a3)) when ``tree``,
 # else left to right; with ``split`` > 0 each block of ``split``
 # consecutive k is summed apart that way and the blocks' sums are added
-# in increasing k. Measured with jax / jaxlib 0.9.0 on an x86-64 Xeon with
-# AVX-512 and AMX: another jaxlib, or a CPU on which YNNPACK picks other
+# in increasing k. With ``tail`` the last K % lanes values of k (K odd
+# under two lanes: k = K - 1 alone) stay out of the lanes and are summed
+# in a chain of their own, added after the lanes and blocks are
+# combined; without it they join the lanes like any other k (at K =
+# 1241, KITTI's width, only some of the second products keep that k out
+# of the lanes). Every entry matches XLA on every pixel of two random
+# images. Measured with jax / jaxlib 0.9.0 on an x86-64 Xeon with AVX-512
+# and AMX: another jaxlib, or a CPU on which YNNPACK picks other
 # kernels, may sum in other orders; test_resize_summation_order then fails
 # and tests.xla_dot_orders rewrites the table.
-_DEFAULT_ORDER = (1, False, 512)
+_DEFAULT_ORDER = (1, False, 512, False)
 _XLA_DOT_ORDERS = {
-    (65, 97, 131): (4, True, 0),
-    (65, 131, 87): (2, False, 0),
-    (67, 320, 89): (2, False, 0),
-    (71, 512, 143): (4, True, 0),
-    (80, 320, 107): (4, True, 0),
-    (86, 512, 171): (4, True, 0),
-    (96, 320, 129): (4, True, 0),
-    (103, 512, 206): (4, True, 0),
-    (116, 320, 154): (2, False, 0),
-    (120, 320, 160): (2, False, 0),
-    (143, 1024, 286): (2, False, 0),
-    (148, 512, 296): (4, True, 0),
-    (161, 640, 214): (2, False, 0),
-    (167, 320, 222): (2, False, 0),
-    (171, 1024, 343): (2, False, 0),
-    (178, 512, 356): (4, True, 0),
-    (193, 640, 257): (4, True, 0),
-    (200, 320, 267): (4, True, 0),
-    (206, 1024, 412): (2, False, 0),
-    (213, 512, 427): (4, True, 0),
-    (247, 1024, 494): (4, True, 0),
-    (268, 1920, 536): (2, False, 1024),
-    (296, 1024, 593): (2, False, 0),
-    (322, 1920, 643): (4, True, 0),
-    (356, 1024, 711): (4, True, 0),
-    (386, 1920, 772): (4, True, 0),
-    (400, 640, 533): (2, False, 0),
-    (427, 1024, 853): (2, False, 0),
-    (463, 1920, 926): (2, False, 1024),
-    (556, 1920, 1111): (2, False, 1024),
+    (43, 97, 131): (1, False, 512, False),
+    (43, 131, 58): (1, False, 512, False),
+    (65, 97, 131): (4, True, 0, False),
+    (65, 131, 87): (2, False, 0, False),
+    (67, 240, 320): (1, False, 512, False),
+    (67, 320, 89): (2, False, 0, False),
+    (71, 256, 512): (1, False, 512, False),
+    (71, 512, 143): (4, True, 0, False),
+    (80, 240, 320): (1, False, 512, False),
+    (80, 320, 107): (4, True, 0, False),
+    (86, 256, 512): (1, False, 512, False),
+    (86, 512, 171): (4, True, 0, False),
+    (96, 240, 320): (1, False, 512, False),
+    (96, 320, 129): (4, True, 0, False),
+    (103, 256, 512): (1, False, 512, False),
+    (103, 512, 206): (4, True, 0, False),
+    (105, 376, 1241): (2, False, 0, False),
+    (105, 1241, 346): (2, False, 1024, True),
+    (116, 240, 320): (1, False, 512, False),
+    (116, 320, 154): (2, False, 0, False),
+    (120, 240, 320): (1, False, 512, False),
+    (120, 320, 160): (2, False, 0, False),
+    (123, 256, 512): (1, False, 512, False),
+    (123, 512, 247): (1, False, 512, False),
+    (126, 376, 1241): (2, False, 0, False),
+    (126, 1241, 416): (2, False, 1024, True),
+    (128, 256, 512): (1, False, 512, False),
+    (128, 512, 256): (1, False, 512, False),
+    (134, 480, 640): (1, False, 512, False),
+    (134, 480, 752): (4, True, 0, False),
+    (134, 640, 179): (1, False, 512, False),
+    (134, 752, 210): (2, False, 0, False),
+    (139, 240, 320): (1, False, 512, False),
+    (139, 320, 185): (1, False, 512, False),
+    (143, 512, 1024): (1, False, 512, False),
+    (143, 1024, 286): (2, False, 0, False),
+    (148, 256, 512): (1, False, 512, False),
+    (148, 512, 296): (4, True, 0, False),
+    (151, 376, 1241): (2, False, 0, False),
+    (151, 1241, 499): (1, False, 512, False),
+    (161, 480, 640): (1, False, 512, False),
+    (161, 480, 752): (4, True, 0, False),
+    (161, 640, 214): (2, False, 0, False),
+    (161, 752, 252): (1, False, 512, False),
+    (167, 240, 320): (1, False, 512, False),
+    (167, 320, 222): (2, False, 0, False),
+    (171, 512, 1024): (1, False, 512, False),
+    (171, 1024, 343): (2, False, 0, False),
+    (178, 256, 512): (1, False, 512, False),
+    (178, 512, 356): (4, True, 0, False),
+    (181, 376, 1241): (2, False, 0, False),
+    (181, 1241, 598): (2, False, 1024, True),
+    (188, 376, 1241): (2, False, 0, False),
+    (188, 1241, 620): (4, True, 0, False),
+    (193, 480, 640): (1, False, 512, False),
+    (193, 480, 752): (4, True, 0, False),
+    (193, 640, 257): (4, True, 0, False),
+    (193, 752, 302): (4, True, 0, False),
+    (200, 240, 320): (1, False, 512, False),
+    (200, 320, 267): (4, True, 0, False),
+    (206, 512, 1024): (1, False, 512, False),
+    (206, 1024, 412): (2, False, 0, False),
+    (213, 256, 512): (1, False, 512, False),
+    (213, 512, 427): (4, True, 0, False),
+    (218, 376, 1241): (2, False, 0, False),
+    (218, 1241, 718): (4, True, 0, False),
+    (231, 480, 640): (1, False, 512, False),
+    (231, 480, 752): (4, True, 0, False),
+    (231, 640, 309): (1, False, 512, False),
+    (231, 752, 363): (4, True, 0, False),
+    (240, 480, 640): (1, False, 512, False),
+    (240, 480, 752): (4, True, 0, False),
+    (240, 640, 320): (1, False, 512, False),
+    (240, 752, 376): (1, False, 512, False),
+    (247, 512, 1024): (1, False, 512, False),
+    (247, 1024, 494): (4, True, 0, False),
+    (261, 376, 1241): (2, False, 0, False),
+    (261, 1241, 862): (2, False, 1024, False),
+    (268, 960, 1920): (1, False, 512, False),
+    (268, 1920, 536): (2, False, 1024, False),
+    (278, 480, 640): (1, False, 512, False),
+    (278, 480, 752): (4, True, 0, False),
+    (278, 640, 370): (1, False, 512, False),
+    (278, 752, 435): (1, False, 512, False),
+    (296, 512, 1024): (1, False, 512, False),
+    (296, 1024, 593): (2, False, 0, False),
+    (313, 376, 1241): (2, False, 0, False),
+    (313, 1241, 1034): (4, True, 0, False),
+    (322, 960, 1920): (1, False, 512, False),
+    (322, 1920, 643): (4, True, 0, False),
+    (333, 480, 640): (1, False, 512, False),
+    (333, 480, 752): (4, True, 0, False),
+    (333, 640, 444): (1, False, 512, False),
+    (333, 752, 522): (4, True, 0, False),
+    (356, 512, 1024): (1, False, 512, False),
+    (356, 1024, 711): (4, True, 0, False),
+    (386, 960, 1920): (1, False, 512, False),
+    (386, 1920, 772): (4, True, 0, False),
+    (400, 480, 640): (1, False, 512, False),
+    (400, 480, 752): (4, True, 0, False),
+    (400, 640, 533): (2, False, 0, False),
+    (400, 752, 627): (1, False, 512, False),
+    (427, 512, 1024): (1, False, 512, False),
+    (427, 1024, 853): (2, False, 0, False),
+    (463, 960, 1920): (1, False, 512, False),
+    (463, 1920, 926): (2, False, 1024, False),
+    (480, 960, 1920): (1, False, 512, False),
+    (480, 1920, 960): (1, False, 512, False),
+    (556, 960, 1920): (1, False, 512, False),
+    (556, 1920, 1111): (2, False, 1024, False),
+    (667, 960, 1920): (1, False, 512, False),
+    (667, 1920, 1333): (1, False, 512, False),
+    (800, 960, 1920): (1, False, 512, False),
+    (800, 1920, 1600): (1, False, 512, False),
 }
+
+
+_UNMEASURED = set()  # the shapes _dot_order has warned about
 
 
 def _dot_order(M: int, K: int, N: int):
     """The summation order of ``[M, K] @ [K, N]`` (``_XLA_DOT_ORDERS``,
     else ``_DEFAULT_ORDER``: one chain, blocks of 512). The resize equals
     XLA:CPU's bit for bit only for the shapes in the table, and only for
-    the jaxlib and CPU it was measured with; another shape (a 752x480 or
-    1241x376 camera, say) gets the default order, which XLA may not use."""
-    return _XLA_DOT_ORDERS.get((M, K, N), _DEFAULT_ORDER)
+    the jaxlib and CPU it was measured with; another shape gets the
+    default order, which XLA may not use, and logs one warning (once per
+    shape) that the frontend may then part from the JAX package's in the
+    last place."""
+    order = _XLA_DOT_ORDERS.get((M, K, N))
+    if order is None:
+        order = _DEFAULT_ORDER
+        if (M, K, N) not in _UNMEASURED:
+            _UNMEASURED.add((M, K, N))
+            _log.warning(
+                "resize product %s has no measured XLA:CPU summation order; "
+                "using the default, so the pyramid may differ from the JAX "
+                "package's in the last place (add the camera to "
+                "tests/xla_dot_orders.py and regenerate _XLA_DOT_ORDERS)",
+                (M, K, N))
+    return order
 
 
 @functools.lru_cache(maxsize=256)
@@ -107,11 +219,13 @@ def _resize_taps(n_in: int, n_outs: tuple, order: tuple, device: str):
     ``n_out`` of ``n_outs``, one after another along the output axis,
     grouped by the accumulator that sums them under ``order``: ``idx``
     int64 and ``w`` f64 ``[C, S, sum(n_outs)]`` (tap c of each of S =
-    blocks x lanes accumulators, C taps each, padded with weight 0 on tap
-    0 at the end of each chain, which adds an exact zero), on ``device``. The weights
-    are f32 values held in f64: each product is then exact, and one f64
-    add rounded to f32 is a fused multiply-add."""
-    lanes, _, split = order
+    blocks x lanes accumulators, and one more for the tail when ``order``
+    has one and K % lanes > 0; C taps each, padded with weight 0 on tap
+    0 at the end of each chain, which adds an exact zero), on ``device``.
+    The weights are f32 values held in f64: each product is then exact,
+    and one f64 add rounded to f32 is a fused multiply-add."""
+    lanes, _, split, tail = order
+    tail0 = n_in - n_in % lanes if tail else n_in
     W = np.concatenate([_resize_matrix(n_in, n) for n in n_outs])
     groups = [[] for _ in range(W.shape[0])]
     nblk = 1
@@ -120,18 +234,22 @@ def _resize_taps(n_in: int, n_outs: tuple, order: tuple, device: str):
         blk0 = int(nz[0]) // split if split else 0
         per = {}
         for k in nz:
+            if k >= tail0:
+                per.setdefault((-1, 0), []).append(int(k))
+                continue
             b = (int(k) // split - blk0) if split else 0
             nblk = max(nblk, b + 1)
             per.setdefault((b, int(k) % lanes), []).append(int(k))
         groups[j] = per
-    S = nblk * lanes
+    S = nblk * lanes + (tail0 < n_in)
     C = max(len(v) for per in groups for v in per.values())
     idx = np.zeros((C, S, W.shape[0]), np.int64)
     w = np.zeros((C, S, W.shape[0]), np.float64)
     for j, per in enumerate(groups):
         for (b, lane), ks in per.items():
-            idx[: len(ks), b * lanes + lane, j] = ks
-            w[: len(ks), b * lanes + lane, j] = W[j, ks]
+            s = S - 1 if b < 0 else b * lanes + lane
+            idx[: len(ks), s, j] = ks
+            w[: len(ks), s, j] = W[j, ks]
     dev = torch.device(device)
     return torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
 
@@ -143,8 +261,9 @@ def _banded_dot(x, n_outs: tuple, dim: int, order):
     arithmetic on every device: f32 accumulators, each step one f64 add of
     an exact f64 product, rounded to f32. All taps are gathered and
     multiplied at once; only the rounding chain runs tap by tap."""
-    lanes, tree, _ = order
-    idx, w = _resize_taps(x.shape[dim], tuple(n_outs), order, str(x.device))
+    lanes, tree, _, tail = order
+    n_in = x.shape[dim]
+    idx, w = _resize_taps(n_in, tuple(n_outs), order, str(x.device))
     x64 = x.to(torch.float64)
     if dim == 1:
         x64 = x64.T
@@ -152,8 +271,9 @@ def _banded_dot(x, n_outs: tuple, dim: int, order):
     acc = prod[0].to(torch.float32)
     for c in range(1, idx.shape[0]):
         acc = (acc.to(torch.float64) + prod[c]).to(torch.float32)
+    n_lane = acc.shape[0] - bool(tail and n_in % lanes)
     out = None
-    for b in range(0, acc.shape[0], lanes):
+    for b in range(0, n_lane, lanes):
         part = acc[b : b + lanes]
         while tree and part.shape[0] > 1:
             part = part[0::2] + part[1::2]
@@ -161,6 +281,8 @@ def _banded_dot(x, n_outs: tuple, dim: int, order):
         for i in range(1, part.shape[0]):
             blk = blk + part[i]
         out = blk if out is None else out + blk
+    if n_lane < acc.shape[0]:
+        out = out + acc[-1]
     return out.T if dim == 1 else out
 
 

@@ -4,7 +4,9 @@ Port of structure_plp_slam_tpu/ops/linalg.py: adjugate 3x3 inverses, a
 3x3-Schur 6x6 SPD inverse, the equilibrated 6x6 solve used inside the
 per-frame LM loop, and the recursive block SPD inverse + preconditioned
 CG solve. Same arithmetic, so the port's LM iterates follow the JAX
-package's. ``jacobian_fwd``: forward-mode Jacobians of row-wise batched
+package's. ``block_cholesky_solve``: the dense Cholesky solve of a
+block system, in one summation order on the CPU at any torch thread
+count. ``jacobian_fwd``: forward-mode Jacobians of row-wise batched
 residuals (the line terms).
 """
 
@@ -148,6 +150,55 @@ def spd_solve(S, rhs, base: int = 6, refine: int = 2):
         p = z + beta * p
         rz = rz_new
     return x[..., :n] * dinv
+
+
+# Largest diagonal block ``block_cholesky_solve`` factors at once on the CPU.
+CHOL_BLOCK = 24
+
+
+def block_cholesky_solve(S, rhs):
+    """Solve ``S x = rhs`` for the SPD block matrix ``S [C, C, b, b]``
+    (block (i, j) at rows i, columns j), ``rhs [C, b]``; ``x [C, b]``, all
+    NaN where the factorization fails (as jax's ``cho_factor`` gives).
+
+    On the card: ``cholesky_ex`` and ``cholesky_solve`` of the dense
+    ``[Cb, Cb]`` matrix. On the CPU MKL's factorization of a matrix past
+    ~128 rows splits its updates by thread, so its last bits follow
+    torch's thread count; there the factorization runs block column by
+    block column instead (right-looking, over diagonal blocks of up to
+    ``CHOL_BLOCK`` rows: each diagonal block factored alone, the blocks
+    below it by a batched triangular solve, the trailing blocks and the
+    right-hand side updated by elementwise products summed along one
+    axis), then the back substitution block by block, which gives one
+    result at any thread count."""
+    C, b = S.shape[0], S.shape[-1]
+    if S.device.type != "cpu":
+        L, info = torch.linalg.cholesky_ex(S.permute(0, 2, 1, 3).reshape(C * b, C * b))
+        x = torch.cholesky_solve(rhs.reshape(C * b, 1), L).reshape(C, b)
+        return torch.where(info == 0, x, torch.nan)
+    g = max(k for k in range(1, C + 1) if C % k == 0 and k * b <= max(CHOL_BLOCK, b))
+    n, m = C // g, g * b
+    A = S.reshape(n, g, n, g, b, b).permute(0, 2, 1, 4, 3, 5).reshape(n, n, m, m).clone()
+    y = rhs.reshape(n, m).clone()
+    diag = []
+    fail = torch.zeros((), dtype=torch.bool)
+    for j in range(n):
+        Ljj, info = torch.linalg.cholesky_ex(A[j, j])
+        fail = fail | (info != 0)
+        diag.append(Ljj)
+        y[j] = torch.linalg.solve_triangular(Ljj, y[j, :, None], upper=False)[:, 0]
+        if j + 1 < n:
+            # L[i, j] = A[i, j] Ljj^-T below the diagonal block.
+            Lij = torch.linalg.solve_triangular(
+                Ljj, A[j + 1 :, j].transpose(-1, -2), upper=False).transpose(-1, -2)
+            A[j + 1 :, j] = Lij
+            A[j + 1 :, j + 1 :] -= (Lij[:, None, :, None, :] * Lij[None, :, None, :, :]).sum(-1)
+            y[j + 1 :] -= (Lij * y[j]).sum(-1)
+    for j in range(n - 1, -1, -1):  # L^T x = y
+        y[j] = torch.linalg.solve_triangular(diag[j].T, y[j, :, None], upper=True)[:, 0]
+        if j:
+            y[:j] -= (A[j, :j] * y[j][None, :, None]).sum(-2)
+    return torch.where(fail, torch.nan, y.reshape(C, b))
 
 
 def jacobian_fwd(fn, x0, n: int):

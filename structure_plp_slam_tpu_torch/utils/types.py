@@ -11,7 +11,8 @@ Port of structure_plp_slam_tpu/utils/types.py. Policy:
 
 It also holds the helpers that stand in for JAX idioms with no direct
 torch counterpart: a static-size ``nonzero``, a stable top-k and a
-scatter-set with a fixed rule for duplicate indices.
+scatter-set with a fixed rule for duplicate indices, and a sum whose
+order on the CPU does not follow torch's thread count.
 """
 
 from __future__ import annotations
@@ -26,6 +27,42 @@ INVALID = -1
 BIG = 1e30
 # Max Hamming distance for 256-bit descriptors + 1; used as masked value.
 HAMMING_MASKED = 1024
+
+
+# Rows per block of ``fixed_order_sum``.
+SUM_BLOCK = 256
+
+
+def fixed_order_sum(fn, *xs, dim: int = 0):
+    """``fn(*xs)``, summed in one order at any torch thread count. ``fn``
+    sums over axis ``dim`` of every one of ``xs`` (all of one length n
+    there) and maps a new leading axis through (a ``...`` einsum, say).
+    On the CPU the n entries are cut into two or more blocks of at most
+    SUM_BLOCK (the last padded with zeros), ``fn`` runs on all blocks at
+    once with the blocks as a leading batch axis, and the block results
+    are added in order. torch's CPU reduction to one value splits its sum
+    across threads past 32768 elements, and MKL's product splits a long
+    contraction whose output is small, so the last bits of either follow
+    the thread count; a batched product runs each block's product on one
+    thread, and a reduction to many values splits only across them. On
+    another device this is ``fn(*xs)``: the ops stay as they were."""
+    n = xs[0].shape[dim]
+    if xs[0].device.type != "cpu" or n < 2:
+        return fn(*xs)
+    nb = max(2, -(-n // SUM_BLOCK))
+    rows = -(-n // nb)
+    pad = nb * rows - n
+
+    def blocks(x):
+        if pad:
+            x = torch.cat([x, x.new_zeros(x.shape[:dim] + (pad,) + x.shape[dim + 1 :])], dim)
+        return x.reshape(x.shape[:dim] + (nb, rows) + x.shape[dim + 1 :]).movedim(dim, 0)
+
+    parts = fn(*(blocks(x) for x in xs))
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
 
 
 def round_up(x: int, m: int) -> int:

@@ -9,7 +9,8 @@ that matches every pixel is kept.
 
     JAX_PLATFORMS=cpu python -m tests.xla_dot_orders
 
-prints the table (entries equal to the default order are left out), and
+prints the table (every measured shape, those that take the default order
+too: ``ops/image.py`` warns about a shape only when it is missing), and
 ``tests/test_torch_frontend.py::test_resize_summation_order`` holds each
 entry of the port's table against XLA.
 """
@@ -19,31 +20,42 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Preference order: the port's default first, so a shape that needs no
-# entry gets none.
+# Preference order: the port's default first; the order with a tail
+# (``ops/image.py``), which some K = 1241 products take, last.
 CANDIDATES = [
-    (1, False, 512), (2, False, 0), (4, True, 0), (2, False, 1024),
-    (1, False, 1024), (2, False, 512), (4, True, 512), (1, False, 256),
-    (4, False, 0), (8, True, 0), (16, True, 0),
+    (1, False, 512, False), (2, False, 0, False), (4, True, 0, False),
+    (2, False, 1024, False), (1, False, 1024, False), (2, False, 512, False),
+    (4, True, 512, False), (1, False, 256, False), (4, False, 0, False),
+    (8, True, 0, False), (16, True, 0, False), (2, False, 1024, True),
 ]
 
 # (rows, cols, levels, scale): every pyramid the port's cameras and tests
-# build, and (rows, cols) of each half-resolution line pass.
+# build, and (rows, cols) of each half-resolution line pass. The dataset
+# cameras are those of run.py's euroc and kitti subcommands: EuRoC's 752x480
+# (tests/test_rectify.py's YAML) and KITTI odometry's 1241x376.
+DATASET_PYRAMIDS = [(480, 752, 8, 1.2), (376, 1241, 8, 1.2)]
+DATASET_HALVES = [(480, 752), (376, 1241)]
 PYRAMIDS = [(240, 320, 8, 1.2), (480, 640, 8, 1.2), (960, 1920, 8, 1.2),
-            (256, 512, 8, 1.2), (512, 1024, 8, 1.2), (97, 131, 3, 1.5)]
-HALVES = [(240, 320), (480, 640), (960, 1920), (256, 512)]
+            (256, 512, 8, 1.2), (512, 1024, 8, 1.2), (97, 131, 3, 1.5),
+            *DATASET_PYRAMIDS]
+HALVES = [(240, 320), (480, 640), (960, 1920), (256, 512), *DATASET_HALVES]
+
+# An order is kept for a shape only if it matches XLA on every pixel of
+# the random images of all these seeds.
+SEEDS = (0, 1)
 
 
-def resize_shapes():
-    """Every ``((H, W), (h, w))`` resize the port's pyramids and line
-    passes run."""
+def resize_shapes(pyramids=PYRAMIDS, halves=HALVES):
+    """Every ``((H, W), (h, w))`` resize of ``pyramids`` and of the
+    half-resolution line passes of ``halves`` (by default all the port's
+    cameras and tests run)."""
     from structure_plp_slam_tpu_torch.ops import image as timg
 
     out = []
-    for rows, cols, levels, scale in PYRAMIDS:
+    for rows, cols, levels, scale in pyramids:
         for hw in timg.pyramid_shapes(rows, cols, levels, scale)[1:]:
             out.append(((rows, cols), hw))
-    out += [((r, c), (r // 2, c // 2)) for r, c in HALVES]
+    out += [((r, c), (r // 2, c // 2)) for r, c in halves]
     return list(dict.fromkeys(out))
 
 
@@ -78,20 +90,21 @@ def matching_orders(img, hw):
     return out
 
 
-def measure(seed: int = 0):
-    """``{dot shape: order}`` for every resize of ``resize_shapes()``, the
-    default order left out; raises if no candidate matches a shape."""
-    from structure_plp_slam_tpu_torch.ops import image as timg
-
-    rng = np.random.default_rng(seed)
+def measure(seeds=SEEDS):
+    """``{dot shape: order}`` for every resize of ``resize_shapes()``: the
+    first candidate that matches XLA on the random image of every seed;
+    raises if no candidate matches a shape."""
     table = {}
     for (H, W), hw in resize_shapes():
-        img = rng.uniform(0, 255, (H, W)).astype(np.float32)
-        for shape, ok in matching_orders(img, hw):
-            if not ok:
+        ok = {}
+        for seed in seeds:
+            img = np.random.default_rng(seed).uniform(0, 255, (H, W)).astype(np.float32)
+            for shape, orders in matching_orders(img, hw):
+                ok[shape] = [o for o in ok.get(shape, orders) if o in orders]
+        for shape, orders in ok.items():
+            if not orders:
                 raise RuntimeError(f"no candidate order gives XLA's {shape}")
-            if ok[0] != timg._DEFAULT_ORDER:
-                table[shape] = ok[0]
+            table[shape] = orders[0]
     return table
 
 
