@@ -35,7 +35,7 @@ import torch
 
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
-from structure_plp_slam_tpu_torch.ops import lie, robust
+from structure_plp_slam_tpu_torch.ops import lie, linalg, robust
 from structure_plp_slam_tpu_torch.utils.types import rdiv
 
 MIN_OBS = 100        # fewer observations than this: no global BA
@@ -184,7 +184,7 @@ def _normal_blocks(camera, cam_pose, lm_pos, data: GlobalBAData, damping, live=N
     bl = _segment_sum(data.obs_lm, bl_o, L)
     lam_l = damping * torch.clamp(
         torch.diagonal(Hll, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 3.0, min=1e-6)
-    Hll_inv = torch.linalg.inv_ex(Hll + lam_l * eye3)[0]
+    Hll_inv = linalg.inv(Hll + lam_l * eye3)
     return U_o, Hcc, bc, Hll_inv, bl
 
 
@@ -226,9 +226,7 @@ def _camera_solve(S_red, Hcc, rhs, free, damping):
     tr = torch.diagonal(S[diag, diag], dim1=-2, dim2=-1).sum(-1)
     S[diag, diag] += (damping * torch.clamp(tr / 6.0, min=1e-6))[:, None, None] * eye6
     rhs = rhs * free_f[:, None]
-    L_chol, info = torch.linalg.cholesky_ex(S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K))
-    dx_c = torch.cholesky_solve(rhs.reshape(6 * K, 1), L_chol).reshape(K, 6)
-    return torch.where(info == 0, dx_c, torch.nan)
+    return linalg.block_cholesky_solve(S, rhs)
 
 
 def _damped(Hcc, damping):

@@ -15,7 +15,7 @@ import torch
 
 from structure_plp_slam_tpu_torch.data import map_state as ms
 from structure_plp_slam_tpu_torch.ops import line_geometry as lg
-from structure_plp_slam_tpu_torch.ops import robust
+from structure_plp_slam_tpu_torch.ops import linalg, robust
 from structure_plp_slam_tpu_torch.ops.linalg import jacobian_fwd
 
 
@@ -64,7 +64,7 @@ def refine_lines(camera, state: ms.MapState, *, num_iters: int = 4, damping: flo
             0, tgt, -torch.einsum("ori,or->oi", Jw, r))[:L2]
         lam = damping * torch.clamp(
             torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 4.0, min=1e-6)
-        delta = torch.linalg.solve_ex(H + (lam + 1e-8) * eye4, b)[0]
+        delta = linalg.solve(H + (lam + 1e-8) * eye4, b)
         ok = refinable & torch.isfinite(delta).all(-1)
         delta = torch.where(ok[:, None], torch.clamp(delta, -0.3, 0.3), zero)
         U, w = lg.orthonormal_update(U, w, delta)

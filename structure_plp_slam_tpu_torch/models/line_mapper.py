@@ -470,8 +470,8 @@ def refine_pose_with_lines(camera, R0, t0, pts_w, obs_uv, obs_info, pts_valid, p
         H = H + torch.einsum("mri,mrj->ij", Jlw, Jl)
         b = b - torch.einsum("mri,mr->i", Jlw, rl)
         H = H + 1e-5 * torch.trace(H) / 6.0 * eye6
-        xi, info = torch.linalg.solve_ex(H, b)
-        xi = torch.where(torch.isfinite(xi).all() & (info == 0), xi, zero)
+        xi = linalg.solve(H, b)
+        xi = torch.where(torch.isfinite(xi).all(), xi, zero)
         R, t = lie.se3_update(R, t, xi)
     rl = line_pose_residuals(camera, R, t, pluck_w, seg)
     return R, t, line_valid & (torch.sum(rl * rl, -1) <= robust.CHI2_2D)

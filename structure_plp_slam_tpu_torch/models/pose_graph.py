@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from structure_plp_slam_tpu_torch.ops import lie
+from structure_plp_slam_tpu_torch.ops import lie, linalg
 
 
 class PoseGraphProblem(NamedTuple):
@@ -120,12 +120,9 @@ def optimize_pose_graph(prob: PoseGraphProblem, *, num_iters: int = 20,
         H[diag, diag] += (damping * torch.clamp(tr / 7.0, min=1e-6))[:, None, None] * eye7
         b = b * free_f[:, None]
 
-        Hd = H.permute(0, 2, 1, 3).reshape(7 * K, 7 * K)
-        L_chol, info = torch.linalg.cholesky_ex(Hd)
-        dx = torch.cholesky_solve(b.reshape(7 * K, 1), L_chol).reshape(K, 7)
         # A failed factorization gives NaNs (as jax's cho_factor does); the
         # finite check in _update then drops the whole step.
-        dx = torch.where(info == 0, dx, torch.nan)
+        dx = linalg.block_cholesky_solve(H, b)
         R, t, s = _update(prob, R, t, s, dx, free)
         chi2 = torch.sum(w * torch.sum(r * r, dim=-1))
     return R, t, s, chi2
@@ -147,7 +144,7 @@ def _shift_left(arr, fill):
 
 def _inv(A):
     """Batched inverse without the error check's host sync."""
-    return torch.linalg.inv_ex(A)[0]
+    return linalg.inv(A)
 
 
 def _bcr_factor(B, A, C):

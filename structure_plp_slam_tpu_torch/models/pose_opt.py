@@ -108,8 +108,8 @@ def optimize_pose(camera, R0, t0, points_w, obs_uv, obs_xr, inv_sigma_sq, valid,
                 dim=-1,
             )  # [B, N, 3]
             dpc = torch.cat([eye.expand(pc.shape[:-1] + (3, 3)), -lie.hat(pc)], dim=-1)
-            J2 = J_uv @ dpc                                  # [B, N, 2, 6]
-            J3r = (J_xr_pc[..., None, :] @ dpc)[..., 0, :]   # [B, N, 6]
+            J2 = linalg_ops.matmul(J_uv, dpc)                            # [B, N, 2, 6]
+            J3r = linalg_ops.matmul(J_xr_pc[..., None, :], dpc)[..., 0, :]  # [B, N, 6]
             w_st = torch.where(has_stereo, w, zero)
 
             Jw2 = J2 * w[..., None, None]

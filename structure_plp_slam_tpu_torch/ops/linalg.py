@@ -5,31 +5,46 @@ Port of structure_plp_slam_tpu/ops/linalg.py: adjugate 3x3 inverses, a
 per-frame LM loop, and the recursive block SPD inverse + preconditioned
 CG solve. Same arithmetic, so the port's LM iterates follow the JAX
 package's. ``block_cholesky_solve``: the dense Cholesky solve of a
-block system, in one summation order on the CPU at any torch thread
-count. ``jacobian_fwd``: forward-mode Jacobians of row-wise batched
+block system. ``jacobian_fwd``: forward-mode Jacobians of row-wise batched
 residuals (the line terms).
+
+The factorizations (``svd``, ``eigh``, ``cho_factor`` / ``cho_solve``,
+``inv``, ``solve``) are one function per JAX call. On the card each is
+the ``torch.linalg`` op. On the CPU each loops over the leading batch axes
+into the LAPACK / BLAS routine that XLA:CPU calls for the JAX op
+(``sgesdd``, ``ssyevd``, ``spotrf`` then two ``strsm``, ``sgetrf`` then
+two ``strsm``), through ``scipy.linalg``: jaxlib's CPU kernels call the
+same library, so the port's CPU results, signs included, are the JAX
+package's (ROADMAP C45, C10/C23). scipy's OpenBLAS does not follow
+torch's thread count. Where LAPACK reports a failure the result is what
+JAX gives (NaN), never another route's.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
 def inv3x3(H):
-    """Closed-form batched 3x3 inverse via the adjugate."""
+    """Closed-form batched 3x3 inverse via the adjugate. On the CPU each
+    difference of two products fuses the first (:func:`fms`), as XLA:CPU
+    compiles the jitted function."""
     a, b, c = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     d, e, f = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     g, h, i = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
-    A = e * i - f * h
-    B = -(d * i - f * g)
-    Cc = d * h - e * g
-    det = a * A + b * B + c * Cc
+    A = fms(e, i, f * h)
+    B = -fms(d, i, f * g)
+    Cc = fms(d, h, e * g)
+    det = fma(c, Cc, fma(a, A, b * B))
     inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, torch.full_like(det, 1e-12), det)
     adj = torch.stack(
         [
-            torch.stack([A, -(b * i - c * h), b * f - c * e], -1),
-            torch.stack([B, a * i - c * g, -(a * f - c * d)], -1),
-            torch.stack([Cc, -(a * h - b * g), a * e - b * d], -1),
+            torch.stack([A, -fms(b, i, c * h), fms(b, f, c * e)], -1),
+            torch.stack([B, fms(a, i, c * g), -fms(a, f, c * d)], -1),
+            torch.stack([Cc, -fms(a, h, b * g), fms(a, e, b * d)], -1),
         ],
         dim=-2,
     )
@@ -42,11 +57,11 @@ def inv6x6_spd(H):
     B = H[..., :3, 3:]
     D = H[..., 3:, 3:]
     Ai = inv3x3(A)
-    AiB = Ai @ B
-    Sd = D - B.transpose(-1, -2) @ AiB
+    AiB = matmul(Ai, B)
+    Sd = D - matmul(B.transpose(-1, -2), AiB)
     Sdi = inv3x3(Sd)
-    AiB_Sdi = AiB @ Sdi
-    TL = Ai + AiB_Sdi @ AiB.transpose(-1, -2)
+    AiB_Sdi = matmul(AiB, Sdi)
+    TL = Ai + matmul(AiB_Sdi, AiB.transpose(-1, -2))
     TR = -AiB_Sdi
     top = torch.cat([TL, TR], dim=-1)
     bot = torch.cat([TR.transpose(-1, -2), Sdi], dim=-1)
@@ -62,7 +77,7 @@ def spd_inverse(S, base: int = 6):
             return inv6x6_spd(S)
         if n == 3:
             return inv3x3(S)
-        return torch.linalg.inv(S)
+        return inv(S)
     h = n // 2
     A = S[..., :h, :h]
     B = S[..., :h, h:]
@@ -82,7 +97,7 @@ def spd_inverse(S, base: int = 6):
 
 
 def _mv(A, v):
-    return torch.einsum("...ij,...j->...i", A, v)
+    return einsum_fma("...ij,...j->...i", A, v)
 
 
 def solve3(A, b):
@@ -93,7 +108,7 @@ def solve3(A, b):
 def solve6_spd(H, b, refine: int = 2):
     """Batched damped-SPD 6x6 solve: Jacobi equilibration, closed-form
     Schur inverse, ``refine`` iterative-refinement steps."""
-    d = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
+    d = sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
     dinv = 1.0 / d
     He = H * dinv[..., :, None] * dinv[..., None, :]
     be = b * dinv
@@ -152,53 +167,281 @@ def spd_solve(S, rhs, base: int = 6, refine: int = 2):
     return x[..., :n] * dinv
 
 
-# Largest diagonal block ``block_cholesky_solve`` factors at once on the CPU.
-CHOL_BLOCK = 24
+def _lapack(name, dtype):
+    """The scipy LAPACK / BLAS routine ``name`` for ``dtype`` (``s`` or ``d``
+    prefix); scipy is imported here, on the CPU route only."""
+    from scipy.linalg import blas, lapack
+
+    prefix = {torch.float32: "s", torch.float64: "d"}[dtype]
+    return getattr(blas if name == "trsm" else lapack, prefix + name)
+
+
+@functools.lru_cache(maxsize=None)
+def _gesdd_lwork(dtype, m: int, n: int, full_matrices: bool) -> int:
+    """The workspace size of a workspace query, as jaxlib's ``gesdd``
+    takes it."""
+    work, info = _lapack("gesdd_lwork", dtype)(m, n, compute_uv=1,
+                                               full_matrices=int(full_matrices))
+    assert info == 0, info
+    return max(int(work), 1)
+
+
+def _matrices(a):
+    """``a [..., m, n]`` as a C-ordered numpy stack ``[B, m, n]``."""
+    return np.ascontiguousarray(a.detach().reshape(-1, *a.shape[-2:]).numpy())
+
+
+def _nan_where(bad, *arrays):
+    for x in arrays:
+        x[bad] = np.nan
+    return arrays
+
+
+def svd(a, full_matrices: bool = True):
+    """``jnp.linalg.svd(a, full_matrices)``: (U, S, Vt) over the leading
+    axes of ``a [..., m, n]``; on the CPU ``gesdd``, NaN where it fails."""
+    if a.device.type != "cpu":
+        return torch.linalg.svd(a, full_matrices=full_matrices)
+    m, n = a.shape[-2:]
+    k = min(m, n)
+    mats = _matrices(a)
+    B = mats.shape[0]
+    gesdd = _lapack("gesdd", a.dtype)
+    lwork = _gesdd_lwork(a.dtype, m, n, full_matrices)
+    U = np.empty((B, m, m if full_matrices else k), mats.dtype)
+    S = np.empty((B, k), mats.dtype)
+    Vt = np.empty((B, n if full_matrices else k, n), mats.dtype)
+    bad = np.zeros(B, bool)
+    for i in range(B):
+        U[i], S[i], Vt[i], info = gesdd(mats[i], compute_uv=1,
+                                        full_matrices=int(full_matrices), lwork=lwork)
+        bad[i] = info != 0
+    _nan_where(bad, U, S, Vt)
+    lead = a.shape[:-2]
+    return (torch.from_numpy(U).reshape(*lead, *U.shape[1:]),
+            torch.from_numpy(S).reshape(*lead, k),
+            torch.from_numpy(Vt).reshape(*lead, *Vt.shape[1:]))
+
+
+def eigh(a):
+    """``jnp.linalg.eigh(a)``: (ascending eigenvalues, eigenvectors as
+    columns) of ``a [..., n, n]``; on the CPU ``syevd`` on the lower
+    triangle of the symmetric part ``(a + a^T) / 2``, as JAX symmetrizes
+    it, NaN where it fails."""
+    if a.device.type != "cpu":
+        return torch.linalg.eigh(a)
+    a = (a + a.transpose(-1, -2)) / 2
+    n = a.shape[-1]
+    mats = _matrices(a)
+    B = mats.shape[0]
+    syevd = _lapack("syevd", a.dtype)
+    W = np.empty((B, n), mats.dtype)
+    V = np.empty((B, n, n), mats.dtype)
+    bad = np.zeros(B, bool)
+    for i in range(B):
+        W[i], V[i], info = syevd(mats[i], compute_v=1, lower=1)
+        bad[i] = info != 0
+    _nan_where(bad, W, V)
+    return (torch.from_numpy(W).reshape(*a.shape[:-1]),
+            torch.from_numpy(V).reshape(a.shape))
+
+
+def cho_factor(a):
+    """``jax.scipy.linalg.cho_factor(a, lower=True)[0]``: the lower
+    Cholesky factor of ``a [..., n, n]`` (its lower triangle only; zeros
+    above), the lower triangle NaN where the factorization fails."""
+    if a.device.type != "cpu":
+        L, info = torch.linalg.cholesky_ex(a)
+        return torch.where((info == 0)[..., None, None], L, torch.nan).tril()
+    mats = _matrices(a)
+    potrf = _lapack("potrf", a.dtype)
+    out = np.empty_like(mats)
+    bad = np.zeros(mats.shape[0], bool)
+    for i in range(mats.shape[0]):
+        out[i], info = potrf(mats[i], lower=1, clean=1)
+        bad[i] = info != 0
+    out[bad] = np.where(np.tri(a.shape[-1], dtype=bool), np.nan, 0.0)
+    return torch.from_numpy(out).reshape(a.shape)
+
+
+def _trsm_left(trsm, A, b, *, lower: bool, trans: bool, unit: bool = False):
+    """``op(A)^-1 b`` for ``b [n]`` or ``[n, k]`` by one BLAS ``trsm``."""
+    x = trsm(1.0, A, b.reshape(b.shape[0], -1), side=0, lower=int(lower),
+             trans_a=int(trans), diag=int(unit))
+    return x.reshape(b.shape)
+
+
+def cho_solve(L, b):
+    """``jax.scipy.linalg.cho_solve((L, True), b)`` for the factor of
+    :func:`cho_factor`: ``b [..., n]`` or ``[..., n, k]`` over the leading
+    axes of ``L [..., n, n]``; on the CPU two ``trsm``, as JAX's."""
+    if L.device.type != "cpu":
+        vec = b.dim() == L.dim() - 1
+        x = torch.cholesky_solve(b[..., None] if vec else b, L)
+        return x[..., 0] if vec else x
+    trsm = _lapack("trsm", L.dtype)
+    Ls = _matrices(L)
+    bs = b.detach().reshape(Ls.shape[0], *b.shape[L.dim() - 2:]).numpy()
+    out = np.empty_like(bs)
+    for i in range(Ls.shape[0]):
+        y = _trsm_left(trsm, Ls[i], bs[i], lower=True, trans=False)
+        out[i] = _trsm_left(trsm, Ls[i], y, lower=True, trans=True)
+    return torch.from_numpy(out).reshape(b.shape)
+
+
+def _lu_solve_cpu(a, b):
+    """``jnp.linalg.solve`` on the CPU: ``getrf``, the pivots applied to
+    ``b`` as a permutation, then the unit-lower and upper ``trsm``; NaN
+    where ``getrf`` reports a bad argument (a singular matrix divides by
+    its zero pivot, as in JAX)."""
+    getrf = _lapack("getrf", a.dtype)
+    trsm = _lapack("trsm", a.dtype)
+    mats = _matrices(a)
+    n = a.shape[-1]
+    bs = b.detach().reshape(mats.shape[0], *b.shape[a.dim() - 2:]).numpy()
+    out = np.empty_like(bs)
+    for i in range(mats.shape[0]):
+        lu, piv, info = getrf(mats[i])
+        if info < 0:
+            out[i] = np.nan
+            continue
+        perm = np.arange(n)
+        for j, p in enumerate(piv):
+            perm[[j, p]] = perm[[p, j]]
+        x = _trsm_left(trsm, lu, bs[i][perm], lower=True, trans=False, unit=True)
+        out[i] = _trsm_left(trsm, lu, x, lower=False, trans=False)
+    return torch.from_numpy(out).reshape(b.shape)
+
+
+def solve(a, b):
+    """``jnp.linalg.solve(a, b)``: ``b [..., n]`` (one right-hand side) or
+    ``[..., n, k]`` over the leading axes of ``a [..., n, n]``; on the
+    CPU the LU route of :func:`_lu_solve_cpu`."""
+    if a.device.type != "cpu":
+        return torch.linalg.solve_ex(a, b)[0]
+    return _lu_solve_cpu(a, b)
+
+
+def inv(a):
+    """``jnp.linalg.inv(a)`` over the leading axes of ``a [..., n, n]``: on
+    the CPU the solve of the identity, as JAX computes it."""
+    if a.device.type != "cpu":
+        return torch.linalg.inv_ex(a)[0]
+    eye = torch.eye(a.shape[-1], dtype=a.dtype).expand(a.shape)
+    return _lu_solve_cpu(a, eye)
+
+
+def _fma_round(p, acc):
+    """``p + acc`` rounded once to f32, for an f64 ``p`` that is an exact
+    product of two f32 values and an f32 ``acc``. The f64 sum rounds
+    first; where that lands exactly halfway between two f32 values, the
+    sum's rounding error (two-sum) says which way the exact value lies."""
+    a = acc.double()
+    s = p + a
+    r = s.float()
+    # Only an f64 sum whose low 29 bits are 1 followed by zeros sits
+    # halfway between two normal f32 values.
+    half = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    tiny = (r != 0) & (torch.abs(r) < torch.finfo(torch.float32).tiny)
+    if not bool(torch.any(half | tiny)):
+        return r
+    z = s - p
+    err = (p - (s - z)) + (a - z)
+    r64 = r.double()
+    away = torch.nextafter(r, torch.where(s > r64, torch.inf, -torch.inf).to(r.dtype))
+    tie = (s != r64) & (s == (r64 + away.double()) * 0.5) & (err != 0)
+    return torch.where(tie & ((err > 0) == (away > r)), away, r)
+
+
+def fma(x, y, acc):
+    """``x * y + acc``. On the CPU rounded once to f32, as XLA:CPU compiles
+    a product that feeds a sum in one fusion (a fused multiply-add); on
+    the card the two ops."""
+    if x.device.type != "cpu":
+        return x * y + acc
+    return _fma_round(x.double() * y.double(), acc)
+
+
+def fms(x, y, z):
+    """``x * y - z``, fused on the CPU as :func:`fma`; on the card the two
+    ops."""
+    if x.device.type != "cpu":
+        return x * y - z
+    return _fma_round(x.double() * y.double(), -z)
+
+
+def matmul(a, b):
+    """``a @ b`` of small matrices; on the CPU summed as XLA:CPU sums it
+    (:func:`einsum_fma`)."""
+    if a.device.type != "cpu":
+        return a @ b
+    return einsum_fma("...ij,...jk->...ik", a, b)
+
+
+def sqrt(x):
+    """``torch.sqrt``, correctly rounded on the CPU as XLA's is (torch's f32
+    CPU sqrt is not always; the f64 root rounds to the right f32)."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def norm(v):
+    """``jnp.linalg.norm(v, axis=-1)``: on the CPU the squares summed in one
+    fused multiply-add chain in increasing order and a correctly rounded
+    root, as XLA:CPU computes it; on the card ``torch.linalg.norm``."""
+    if v.device.type != "cpu":
+        return torch.linalg.norm(v, dim=-1)
+    acc = v[..., 0] * v[..., 0]
+    for k in range(1, v.shape[-1]):
+        acc = fma(v[..., k], v[..., k], acc)
+    return sqrt(acc)
+
+
+def einsum_fma(eq, a, b):
+    """``torch.einsum(eq, a, b)`` with one contracted index. On the CPU
+    summed as XLA:CPU's dot of these small shapes: each output one fused
+    multiply-add chain over the contracted index in increasing order,
+    from 0 (:func:`fma`); on the card the einsum."""
+    if a.device.type != "cpu":
+        return torch.einsum(eq, a, b)
+    ins, out = eq.replace("...", "").split("->")
+    sa, sb = ins.split(",")
+    (c,) = [ch for ch in sa if ch in sb and ch not in out]
+    da, db = sa.index(c) - len(sa), sb.index(c) - len(sb)
+    eq1 = eq.replace(c, "")
+    acc = None
+    for k in range(a.shape[da]):
+        prod = torch.einsum(eq1, a.select(da, k).double(), b.select(db, k).double())
+        acc = prod.float() if acc is None else _fma_round(prod, acc)
+    return acc
+
+
+def det3(a):
+    """``jnp.linalg.det`` of ``a [..., 3, 3]``: on the CPU JAX's closed form
+    (``_det_3x3``) as XLA:CPU compiles it, the first product rounded and
+    each later one fused into the sum; on the card ``torch.linalg.det``."""
+    if a.device.type != "cpu":
+        return torch.linalg.det(a)
+    e = [[a[..., i, j] for j in range(3)] for i in range(3)]
+    d = fma(e[0][0] * e[1][1], e[2][2], e[0][1] * e[1][2] * e[2][0])
+    d = fma(e[0][2] * e[1][0], e[2][1], d)
+    d = fma(-(e[0][2] * e[1][1]), e[2][0], d)
+    d = fma(-(e[0][0] * e[1][2]), e[2][1], d)
+    return fma(-(e[0][1] * e[1][0]), e[2][2], d)
 
 
 def block_cholesky_solve(S, rhs):
     """Solve ``S x = rhs`` for the SPD block matrix ``S [C, C, b, b]``
     (block (i, j) at rows i, columns j), ``rhs [C, b]``; ``x [C, b]``, all
-    NaN where the factorization fails (as jax's ``cho_factor`` gives).
-
-    On the card: ``cholesky_ex`` and ``cholesky_solve`` of the dense
-    ``[Cb, Cb]`` matrix. On the CPU MKL's factorization of a matrix past
-    ~128 rows splits its updates by thread, so its last bits follow
-    torch's thread count; there the factorization runs block column by
-    block column instead (right-looking, over diagonal blocks of up to
-    ``CHOL_BLOCK`` rows: each diagonal block factored alone, the blocks
-    below it by a batched triangular solve, the trailing blocks and the
-    right-hand side updated by elementwise products summed along one
-    axis), then the back substitution block by block, which gives one
-    result at any thread count."""
+    NaN where the factorization fails (as jax's ``cho_factor`` gives): the
+    dense ``[Cb, Cb]`` Cholesky solve of the BA's, the global BA's and the
+    pose graph's camera systems, by :func:`cho_factor` and
+    :func:`cho_solve` (on the CPU JAX's LAPACK routines, whose OpenBLAS
+    does not follow torch's thread count; ROADMAP C45)."""
     C, b = S.shape[0], S.shape[-1]
-    if S.device.type != "cpu":
-        L, info = torch.linalg.cholesky_ex(S.permute(0, 2, 1, 3).reshape(C * b, C * b))
-        x = torch.cholesky_solve(rhs.reshape(C * b, 1), L).reshape(C, b)
-        return torch.where(info == 0, x, torch.nan)
-    g = max(k for k in range(1, C + 1) if C % k == 0 and k * b <= max(CHOL_BLOCK, b))
-    n, m = C // g, g * b
-    A = S.reshape(n, g, n, g, b, b).permute(0, 2, 1, 4, 3, 5).reshape(n, n, m, m).clone()
-    y = rhs.reshape(n, m).clone()
-    diag = []
-    fail = torch.zeros((), dtype=torch.bool)
-    for j in range(n):
-        Ljj, info = torch.linalg.cholesky_ex(A[j, j])
-        fail = fail | (info != 0)
-        diag.append(Ljj)
-        y[j] = torch.linalg.solve_triangular(Ljj, y[j, :, None], upper=False)[:, 0]
-        if j + 1 < n:
-            # L[i, j] = A[i, j] Ljj^-T below the diagonal block.
-            Lij = torch.linalg.solve_triangular(
-                Ljj, A[j + 1 :, j].transpose(-1, -2), upper=False).transpose(-1, -2)
-            A[j + 1 :, j] = Lij
-            A[j + 1 :, j + 1 :] -= (Lij[:, None, :, None, :] * Lij[None, :, None, :, :]).sum(-1)
-            y[j + 1 :] -= (Lij * y[j]).sum(-1)
-    for j in range(n - 1, -1, -1):  # L^T x = y
-        y[j] = torch.linalg.solve_triangular(diag[j].T, y[j, :, None], upper=True)[:, 0]
-        if j:
-            y[:j] -= (A[j, :j] * y[j][None, :, None]).sum(-2)
-    return torch.where(fail, torch.nan, y.reshape(C, b))
+    Sd = S.permute(0, 2, 1, 3).reshape(C * b, C * b)
+    return cho_solve(cho_factor(Sd), rhs.reshape(C * b)).reshape(C, b)
 
 
 def jacobian_fwd(fn, x0, n: int):

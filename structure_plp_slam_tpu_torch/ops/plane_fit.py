@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from structure_plp_slam_tpu_torch.ops import linalg
 from structure_plp_slam_tpu_torch.ops.ransac import sample_minimal_sets
 from structure_plp_slam_tpu_torch.utils.types import topk_stable
 
@@ -36,7 +37,7 @@ def fit_plane_svd(points, weights):
     mu = torch.sum(points * w[..., None], dim=-2) / wsum[..., None]
     X = (points - mu[..., None, :]) * torch.sqrt(w)[..., None]
     cov = X.transpose(-1, -2) @ X
-    _, eigvec = torch.linalg.eigh(cov)
+    _, eigvec = linalg.eigh(cov)
     n = eigvec[..., :, 0]  # smallest eigenvalue -> normal
     return n, -torch.sum(n * mu, dim=-1)
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from structure_plp_slam_tpu_torch.models import pose_opt
+from structure_plp_slam_tpu_torch.ops import linalg
 from structure_plp_slam_tpu_torch.ops.ransac import distinct_sets, sample_minimal_sets
 
 
@@ -29,7 +30,7 @@ def pnp_dlt(points_w, bearings):
     r1 = torch.cat([Xh, zeros4, -x * Xh], dim=-1)  # [S, 6, 12]
     r2 = torch.cat([zeros4, Xh, -y * Xh], dim=-1)
     A = torch.cat([r1, r2], dim=-2)  # [S, 12, 12]
-    _, _, Vt = torch.linalg.svd(A)
+    _, _, Vt = linalg.svd(A)
     P = Vt[..., -1, :].reshape(*A.shape[:-2], 3, 4)
     # Projective depths of points in front of the camera are positive.
     w_depth = torch.einsum("...j,...nj->...n", P[..., 2, :], Xh)
@@ -38,8 +39,8 @@ def pnp_dlt(points_w, bearings):
     M = P[..., :3]
     # M = s R: the nearest rotation (det-corrected); a mirrored sample
     # scores ~0 inliers and drops out.
-    U, D, Vt2 = torch.linalg.svd(M)
-    sgn = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt2))
+    U, D, Vt2 = linalg.svd(M)
+    sgn = torch.sign(linalg.det3(U) * linalg.det3(Vt2))
     diag = torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
     R = U @ (diag[..., :, None] * Vt2)
     scale = torch.sum(D * diag, dim=-1) / 3.0

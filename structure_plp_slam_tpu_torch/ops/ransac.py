@@ -13,10 +13,11 @@ recovery from E (4 candidates) and H (8 Faugeras motions) triangulates
 every correspondence under every candidate; the candidate with the most
 cheirality- and parallax-consistent points wins.
 
-Signs (ROADMAP C, trap "SVD and eigh signs"): null vectors come out of
-``torch.linalg.svd`` / ``eigh`` up to sign, so E and the candidate lists
-may be negated or reordered against the JAX package's. Every score and
-residual here is invariant to those signs; H is normalized by H[2, 2].
+Signs (ROADMAP C, trap "SVD and eigh signs"): every score and residual
+here is invariant to the signs of the SVD's and eigh's vectors, and H is
+normalized by H[2, 2], since the card's cuSOLVER picks its own signs. On
+the CPU the factorizations are LAPACK's (``ops/linalg``), which XLA:CPU
+calls, so the signs there are the JAX package's own.
 """
 
 from __future__ import annotations
@@ -71,17 +72,17 @@ def _where0(cond, x):
 
 def _project_essential(E):
     """Closest essential matrix: singular values (s, s, 0)."""
-    U, S, Vt = torch.linalg.svd(E)
+    U, S, Vt = _linalg.svd(E)
     s = (S[..., 0] + S[..., 1]) * 0.5
     S_new = torch.stack([s, s, torch.zeros_like(s)], dim=-1)
-    return U @ (S_new[..., :, None] * Vt)
+    return _linalg.matmul(U, S_new[..., :, None] * Vt)
 
 
 def essential_8pt(b1, b2):
     """Batched 8-point algorithm. ``b1, b2: [S, 8, 3]`` -> E ``[S, 3, 3]``
     with the rank-2 projection. Row 3i+j of the constraint is b2_i * b1_j."""
     A = torch.einsum("ski,skj->skij", b2, b1).reshape(*b1.shape[:-2], 8, 9)
-    _, _, Vt = torch.linalg.svd(A, full_matrices=True)
+    _, _, Vt = _linalg.svd(A, full_matrices=True)
     E = Vt[..., -1, :].reshape(*b1.shape[:-2], 3, 3)
     return _project_essential(E)
 
@@ -137,7 +138,7 @@ def _weighted_nullvec9(A, w):
     """Smallest eigenvector of A^T diag(w) A for ``[N, 9]`` design rows (the
     weighted DLT / 8-point refit)."""
     M = torch.einsum("ni,nj->ij", A * w[:, None], A)
-    _, V = torch.linalg.eigh(M)
+    _, V = _linalg.eigh(M)
     return V[:, 0]
 
 
@@ -180,15 +181,15 @@ def essential_ransac_coherent(b1, b2, uv1, valid, key, *,
 
 def decompose_essential(E):
     """E -> 4 candidate poses (R ``[4,3,3]``, t ``[4,3]`` unit norm)."""
-    U, _, Vt = torch.linalg.svd(E)
-    U = U * torch.sign(torch.linalg.det(U))[..., None, None]
-    Vt = Vt * torch.sign(torch.linalg.det(Vt))[..., None, None]
+    U, _, Vt = _linalg.svd(E)
+    U = U * torch.sign(_linalg.det3(U))[..., None, None]
+    Vt = Vt * torch.sign(_linalg.det3(Vt))[..., None, None]
     W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
                      dtype=E.dtype, device=E.device)
-    R1 = U @ W @ Vt
-    R2 = U @ W.T @ Vt
+    R1 = _linalg.matmul(_linalg.matmul(U, W), Vt)
+    R2 = _linalg.matmul(_linalg.matmul(U, W.T), Vt)
     t = U[..., :, 2]
-    t = t / torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True), min=1e-12)
+    t = t / torch.clamp(_linalg.norm(t)[..., None], min=1e-12)
     return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
 
 
@@ -198,9 +199,15 @@ def decompose_essential(E):
 
 
 def _normalize_pts(pts):
-    """Hartley normalization. ``[..., N, 2]`` -> (normed, T [..., 3, 3])."""
+    """Hartley normalization. ``[..., N, 2]`` -> (normed, T [..., 3, 3]).
+    On the CPU a minimal set's mean distance sums its four distances as
+    XLA:CPU's vectorized row reduction does, ((0 + 2) + (1 + 3))."""
     mean = torch.mean(pts, dim=-2, keepdim=True)
-    d = torch.mean(torch.linalg.norm(pts - mean, dim=-1), dim=-1)
+    if pts.device.type == "cpu" and pts.shape[-2] == 4:
+        n = _linalg.norm(pts - mean)
+        d = ((n[..., 0] + n[..., 2]) + (n[..., 1] + n[..., 3])) * 0.25
+    else:
+        d = torch.mean(torch.linalg.norm(pts - mean, dim=-1), dim=-1)
     s = rdiv(math.sqrt(2.0), torch.clamp(d, min=1e-9))
     normed = (pts - mean) * s[..., None, None]
     zeros = torch.zeros_like(s)
@@ -237,9 +244,9 @@ def homography_4pt(p1, p2):
     with H p1 ~ p2."""
     n1, T1 = _normalize_pts(p1)
     n2, T2 = _normalize_pts(p2)
-    _, _, Vt = torch.linalg.svd(_dlt_rows(n1, n2), full_matrices=True)
+    _, _, Vt = _linalg.svd(_dlt_rows(n1, n2), full_matrices=True)
     Hn = Vt[..., -1, :].reshape(*p1.shape[:-2], 3, 3)
-    return _normalize_h(_linalg.inv3x3(T2) @ Hn @ T1)
+    return _normalize_h(_linalg.matmul(_linalg.matmul(_linalg.inv3x3(T2), Hn), T1))
 
 
 def homography_transfer_error(H, p1, p2):
@@ -291,33 +298,57 @@ def homography_ransac_coherent(p1, p2, valid, key, *,
         x = torch.sigmoid(unary + smoothness * _coherent_field(x, nbr, nbr_ok))
         x = _where0(valid, x)
         Hn = _weighted_nullvec9(A, torch.cat([x, x])).reshape(3, 3)
-        H = _normalize_h(T2_inv @ Hn @ T1)
+        H = _normalize_h(_linalg.matmul(_linalg.matmul(T2_inv, Hn), T1))
     inl, score = _coherent_tail(homography_transfer_error(H, p1, p2), x, valid, inlier_thr)
     return H, inl, score
+
+
+def _inv3x3_folded(K):
+    """``linalg.inv3x3(K)`` with every op rounded: K is a constant of the
+    JAX package's jitted init, and XLA folds a constant's inverse at
+    compile time without fusing products into multiply-adds, so on the
+    CPU the camera matrix's inverse is the adjugate's plain arithmetic."""
+    a, b, c = K[0, 0], K[0, 1], K[0, 2]
+    d, e, f = K[1, 0], K[1, 1], K[1, 2]
+    g, h, i = K[2, 0], K[2, 1], K[2, 2]
+    A, B, Cc = e * i - f * h, -(d * i - f * g), d * h - e * g
+    det = a * A + b * B + c * Cc
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, torch.full_like(det, 1e-12), det)
+    adj = torch.stack([torch.stack([A, -(b * i - c * h), b * f - c * e]),
+                       torch.stack([B, a * i - c * g, -(a * f - c * d)]),
+                       torch.stack([Cc, -(a * h - b * g), a * e - b * d])])
+    return adj * inv_det
 
 
 def decompose_homography(H, K):
     """H (pixel frame) -> 8 candidate (R, t) motions by Faugeras' SVD
     method (initialize/perspective.cc reconstruct_with_H). Returns
     (R [8,3,3], t [8,3]); t is unit norm."""
-    A = _linalg.inv3x3(K) @ H @ K
-    U, S, Vt = torch.linalg.svd(A)
-    s = torch.linalg.det(U) * torch.linalg.det(Vt)
+    A = _linalg.matmul(_linalg.matmul(_inv3x3_folded(K), H), K)
+    U, S, Vt = _linalg.svd(A)
+    s = _linalg.det3(U) * _linalg.det3(Vt)
     d1, d2, d3 = S[0], S[1], S[2]
 
     def safe(x):
         return torch.where(torch.abs(x) < 1e-12, torch.full_like(x, 1e-12), x)
 
-    denom13 = safe(d1 * d1 - d3 * d3)
-    x1m = torch.sqrt(torch.clamp((d1 * d1 - d2 * d2) / denom13, min=0.0))
-    x3m = torch.sqrt(torch.clamp((d2 * d2 - d3 * d3) / denom13, min=0.0))
-    root = torch.sqrt(torch.clamp((d1 * d1 - d2 * d2) * (d2 * d2 - d3 * d3), min=0.0))
+    def root(x):
+        return _linalg.sqrt(torch.clamp(x, min=0.0))
+
+    # Each difference or sum of two products fuses one of them on the CPU,
+    # as XLA:CPU compiles each of these values: a square that two terms
+    # share is rounded first.
+    fma, fms = _linalg.fma, _linalg.fms
+    d1sq, d2sq, d3sq = d1 * d1, d2 * d2, d3 * d3
+    x1m = root(fma(-d2, d2, d1sq) / safe(fma(-d3, d3, d1sq)))
+    x3m = root(fms(d2, d2, d3sq) / safe(fms(d1, d1, d3sq)))
+    prod = root(fms(d1, d1, d2sq) * fma(-d3, d3, d2sq))
     # d' = +d2: rotation about y by theta.
-    aux_st = root / safe((d1 + d3) * d2)
-    ct = (d2 * d2 + d1 * d3) / safe((d1 + d3) * d2)
+    aux_st = prod / safe((d1 + d3) * d2)
+    ct = fma(d1, d3, d2sq) / safe((d1 + d3) * d2)
     # d' = -d2: rotation by phi with a reflection.
-    aux_sp = root / safe((d1 - d3) * d2)
-    cp = (d1 * d3 - d2 * d2) / safe((d1 - d3) * d2)
+    aux_sp = prod / safe((d1 - d3) * d2)
+    cp = fms(d1, d3, d2sq) / safe((d1 - d3) * d2)
 
     zero = torch.zeros_like(d1)
     one = torch.ones_like(d1)
@@ -328,18 +359,18 @@ def decompose_homography(H, K):
             Rp = torch.stack([torch.stack([ct, zero, -st]), torch.stack([zero, one, zero]),
                               torch.stack([st, zero, ct])])
             tp = (d1 - d3) * torch.stack([e1 * x1m, zero, -e3 * x3m])
-            Rs.append(s * U @ Rp @ Vt)
-            ts.append(U @ tp)
+            Rs.append(_linalg.matmul(_linalg.matmul(s * U, Rp), Vt))
+            ts.append(_linalg.matmul(U, tp[:, None])[:, 0])
     for e1 in (1.0, -1.0):
         for e3 in (1.0, -1.0):
             sp = e1 * e3 * aux_sp
             Rp = torch.stack([torch.stack([cp, zero, sp]), torch.stack([zero, -one, zero]),
                               torch.stack([sp, zero, -cp])])
             tp = (d1 + d3) * torch.stack([e1 * x1m, zero, e3 * x3m])
-            Rs.append(s * U @ Rp @ Vt)
-            ts.append(U @ tp)
+            Rs.append(_linalg.matmul(_linalg.matmul(s * U, Rp), Vt))
+            ts.append(_linalg.matmul(U, tp[:, None])[:, 0])
     ts = torch.stack(ts)
-    ts = ts / torch.clamp(torch.linalg.norm(ts, dim=-1, keepdim=True), min=1e-12)
+    ts = ts / torch.clamp(_linalg.norm(ts)[..., None], min=1e-12)
     return torch.stack(Rs), ts
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from structure_plp_slam_tpu_torch.ops import linalg
 from structure_plp_slam_tpu_torch.ops.ransac import distinct_sets, sample_minimal_sets
 from structure_plp_slam_tpu_torch.utils.types import rdiv
 
@@ -28,8 +29,8 @@ def umeyama_alignment(P, Q, with_scale: bool = True):
     Pc = P - mu_p
     Qc = Q - mu_q
     S = torch.einsum("...ni,...nj->...ij", Qc, Pc) / P.shape[-2]
-    U, D, Vt = torch.linalg.svd(S)
-    det = torch.linalg.det(U) * torch.linalg.det(Vt)
+    U, D, Vt = linalg.svd(S)
+    det = linalg.det3(U) * linalg.det3(Vt)
     diag = torch.ones(S.shape[:-1], dtype=P.dtype, device=P.device)
     diag[..., 2] = torch.sign(det)
     R = U @ (diag[..., :, None] * Vt)

@@ -3,12 +3,17 @@
 Port of structure_plp_slam_tpu/ops/triangulation.py: DLT normal equations
 for N points at once, null vector from a batched symmetric 4x4
 eigendecomposition (the eigenvector's sign cancels in the homogeneous
-division).
+division). On the CPU the rows, their normal matrix and the eigh are
+XLA:CPU's arithmetic (fused multiply-adds, LAPACK; ``ops/linalg``): a
+low-parallax point moves by millimetres with the last bit of its
+normal matrix (ROADMAP C45).
 """
 
 from __future__ import annotations
 
 import torch
+
+from structure_plp_slam_tpu_torch.ops import linalg
 
 
 def _safe(x, eps=1e-12):
@@ -32,15 +37,15 @@ def triangulate_dlt(bearings_1, bearings_2, R_21, t_21):
     P2 = torch.cat([R_21, t_21[..., None]], dim=-1)
     A = torch.stack(
         [
-            x1 * P1[2] - P1[0],
-            y1 * P1[2] - P1[1],
-            x2 * P2[..., 2, :] - P2[..., 0, :],
-            y2 * P2[..., 2, :] - P2[..., 1, :],
+            linalg.fms(x1, P1[2], P1[0]),
+            linalg.fms(y1, P1[2], P1[1]),
+            linalg.fms(x2, P2[..., 2, :], P2[..., 0, :]),
+            linalg.fms(y2, P2[..., 2, :], P2[..., 1, :]),
         ],
         dim=-2,
     )  # [N, 4, 4]
-    AtA = torch.einsum("...ij,...ik->...jk", A, A)
-    _, v = torch.linalg.eigh(AtA)
+    AtA = linalg.einsum_fma("...ij,...ik->...jk", A, A)
+    _, v = linalg.eigh(AtA)
     h = v[..., :, 0]  # eigenvector of the smallest eigenvalue
     return h[..., :3] / _safe(h[..., 3])[..., None]
 

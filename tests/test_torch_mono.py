@@ -4,9 +4,9 @@ Inputs: 8 frames of the rendered sequence at 320x240 (600 keypoints over 4
 levels), stepping 0.08 m a frame as tests/test_system_e2e.py's monocular
 test does. The op-level tests feed the JAX frontend's features to both
 packages with the same key; ``utils/prng`` draws the JAX package's
-samples, so the outputs must agree: matches, masks and the model choice
-exactly, pose within 1e-4, points within 1e-3 relative (low parallax
-scales the pose's differences by depth over baseline). The System-level
+samples and the port's CPU factorizations and fused products are XLA:CPU's
+(``ops/linalg``), so the outputs must be equal: matches, masks, the model
+choice, the pose and the points. The System-level
 test runs both Systems on the frames: the same frames return no pose
 (the same init frame), per-frame poses within 1e-3 m / 1e-3 rad, equal
 keyframe counts. The slow case is the port's copy of
@@ -91,13 +91,10 @@ def test_try_initialize_mono_parity(pair, seed):
     assert int(rt.num_points) == int(rj.num_points)
     assert (rt.point_ok.numpy() == np.asarray(rj.point_ok)).all()
     assert (rt.matches.numpy() == np.asarray(rj.matches)).all()
-    assert np.abs(rt.R_2w.numpy() - np.asarray(rj.R_2w)).max() < 1e-4
-    assert np.abs(rt.t_2w.numpy() - np.asarray(rj.t_2w)).max() < 1e-4
+    np.testing.assert_array_equal(rt.R_2w.numpy(), np.asarray(rj.R_2w))
+    np.testing.assert_array_equal(rt.t_2w.numpy(), np.asarray(rj.t_2w))
     ok = np.asarray(rj.point_ok)
-    pj, pt = np.asarray(rj.points_w)[ok], rt.points_w.numpy()[ok]
-    # Depth over a unit baseline reaches ~20 here, which scales the 1e-5
-    # differences of the pose into the points: 1e-3 relative.
-    assert np.abs(pt - pj).max() / np.abs(pj).max() < 1e-3
+    np.testing.assert_array_equal(rt.points_w.numpy()[ok], np.asarray(rj.points_w)[ok])
 
 
 @pytest.mark.parametrize("count", [1, 2, 7, 8, 0])
@@ -186,19 +183,22 @@ def test_full_width_init_parity():
     """ROADMAP C45: the two-view init at chip_smoke.py's width (640x480,
     1000 keypoints over 8 levels) on the JAX frontend's features of
     numpy seed 42's frames 0-1 (the pair both Systems initialize on) and
-    0-2, with keys 0-2. Success, point counts, the model and the matches
-    exactly; rotations within 1e-5 and translations within 1e-3; points
-    within 5e-2 m. The f32 essential-matrix solve (each package's own
-    eigh and SVD) leaves the translations up to ~1e-4 apart, and a 0.08 m
-    baseline scales that into millimetres of depth (printed), from which
-    the full-width monocular runs part (test_full_width_mono_*)."""
+    0-2, with keys 0-2: success, point counts, the model, the matches, the
+    pose and every point equal. The four successful inits take the
+    essential matrix three times and the homography once. A 0.08 m
+    baseline scales the last bit of a rotation into millimetres of depth,
+    so this holds only because the port's CPU factorizations are LAPACK's,
+    as XLA:CPU's are, and its small products, the triangulation's rows and
+    normal matrix, the homography's normalization and inverse and the
+    decompositions' scalars are fused and summed as XLA:CPU compiles them
+    (``ops/linalg``: ``fma``, ``einsum_fma``, ``norm``, ``inv3x3``)."""
     cam = Camera(setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE, **_FULL_KW)
     jcam = JCamera(setup=JSetup.MONOCULAR, model=JModel.PERSPECTIVE, **_FULL_KW)
     frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 3, step=0.08)
     fe = jfrontend.Frontend(jcam, JOrb(**_FULL_ORB), pad_to=1032)
     f = [{k: np.asarray(v) for k, v in fe.mono(jnp.asarray(img)).items()}
          for img, _, _ in frames]
-    gaps = []
+    models = []
     for a, b in ((0, 1), (0, 2)):
         for key in (0, 1, 2):
             rj = jinit.try_initialize_mono(jcam, f[a], f[b], jax.random.PRNGKey(key))
@@ -212,13 +212,11 @@ def test_full_width_init_parity():
                 continue
             g = np.asarray(rj.point_ok)
             assert (rt.point_ok.numpy() == g).all()
-            dR = np.abs(rt.R_2w.numpy() - np.asarray(rj.R_2w)).max()
-            dt = np.abs(rt.t_2w.numpy() - np.asarray(rj.t_2w)).max()
-            dp = np.abs(rt.points_w.numpy()[g] - np.asarray(rj.points_w)[g]).max()
-            gaps.append(((a, b), key, dR, dt, dp))
-            assert dR < 1e-5 and dt < 1e-3 and dp < 5e-2, gaps[-1]
-    print("init gaps (pair, key, R, t, points):", gaps)
-    assert len(gaps) >= 3
+            np.testing.assert_array_equal(rt.R_2w.numpy(), np.asarray(rj.R_2w))
+            np.testing.assert_array_equal(rt.t_2w.numpy(), np.asarray(rj.t_2w))
+            np.testing.assert_array_equal(rt.points_w.numpy()[g], np.asarray(rj.points_w)[g])
+            models.append(bool(rj.used_homography))
+    assert sorted(models) == [False, False, False, True], models
 
 
 @pytest.mark.slow
@@ -302,42 +300,54 @@ def _full_width_systems(seed, num_frames=40, threads=(2,)):
     return out
 
 
+# The first frame at which the two Systems' keyframe sets differ, on the
+# sequences where they part (measured on this tree; ROADMAP C18, C45).
+PARTS_AT = {0: 11, 1: 28}
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("seed", [0, 1])
 def test_full_width_mono_matches_jax(seed):
     """chip_smoke.py's monocular path on the CPU (``_full_width_systems``),
     on the other paths' texture (seed 0) and the next one (seed 1). The
-    frontends are equal on every frame (ROADMAP C8), so each System takes
-    its own features: end state, lost frames and trajectory length equal,
-    the first pose on the same frame within 1e-3, Sim3 ATE within 0.01 m.
-
-    Measured (this tree, any torch thread count): seed 1, JAX 0.010472 m
-    and the port 0.010483 m, 7 keyframes each; seed 0, JAX 0.073879 m and
-    the port 0.068827 m, 8 keyframes each, at other frames: the two-view
-    init on frames 0-1 (a 0.08 m baseline) leaves the packages' points
-    millimetres apart and the keyframe decisions part later (ROADMAP C45).
-    """
+    frontends are equal on every frame (ROADMAP C8) and so is the two-view
+    init (``test_full_width_init_parity``): end state, lost frames,
+    trajectory length and the first pose frame equal, the first pose
+    within 1e-3. The tracker's pose solve does not yet compute as
+    XLA:CPU does (its chi2 and stereo Jacobian row fuse otherwise, its
+    normal matrix sums otherwise; ROADMAP C18), and on these two sequences
+    a keyframe decision near its threshold then goes the other way: the
+    first frame whose keyframe decision differs is pinned (``PARTS_AT``),
+    and the Sim3 ATEs stay within 0.01 m. Measured on this tree: seed 0,
+    JAX 0.073879 m with keyframes at frames 0, 11, 14, 20, 28, 31, 34, 37,
+    the port 0.070526 m at 0, 18, 20, 26, 34, 35, 36; seed 1, JAX
+    0.010472 m at 0, 11, 14, 28, 31, 34, 37, the port 0.011257 m at 0, 11,
+    14, 36, 37, 38."""
     a, b = _full_width_systems(seed)
     assert a[:4] == b[:4], (a[:4], b[:4])
     assert np.abs(a[4] - b[4]).max() < 1e-3, (a[4], b[4])
+    assert min(set(a[7]) ^ set(b[7])) == PARTS_AT[seed], (a[7], b[7])
     assert abs(a[6] - b[6]) < 0.01, (a[6], b[6])
 
 
 @pytest.mark.slow
 def test_full_width_mono_seed42_parts_after_init():
     """ROADMAP C45 on chip_smoke.py's gated monocular sequence (numpy seed
-    42) at full width: equal features, the same init frame pair and first
-    pose (1e-3), the same end state, then keyframe decisions that part
-    (printed). The port runs with 1, 2 and 3 torch threads and gives one
-    result (its CPU sums take one order at any thread count, ROADMAP
-    C45). Measured on this tree: the JAX System Sim3 ATE 0.115389 m with
-    its valid keyframes at frames 0, 11, 14, 28, 31, 34, 37; the port
-    0.134512 m with its keyframes at frames 0, 5, 8, 19, 32, 33, 34, 37.
-    The JAX System misses tests/test_system_e2e.py's 0.08 m bound here,
-    which that test sets at 320x240; chip_smoke.py gates the monocular
-    path there (ROADMAP C17, C45)."""
+    42) at full width, the port at 1, 2 and 3 torch threads: equal
+    features, the same init (bit-equal since the port's CPU linear algebra
+    is XLA:CPU's), the same end state and first pose (1e-3), one port
+    result at every thread count, and the two Systems match: keyframes at
+    the same frames and Sim3 ATEs within 1e-4 m. Measured on this tree:
+    the JAX System 0.115389 m and the port 0.115470 m, both with their
+    valid keyframes at frames 0, 11, 14, 28, 31, 34, 37 (before the
+    LAPACK routes the port ended at 0.134512 m with keyframes at 0, 5, 8,
+    19, 32, 33, 34, 37). The JAX System misses tests/test_system_e2e.py's
+    0.08 m bound here, which that test sets at 320x240; chip_smoke.py
+    gates the monocular path there (ROADMAP C17, C45)."""
     a, *ports = _full_width_systems(42, threads=(1, 2, 3))
     for b in ports:
         assert a[0] == b[0] and a[3] == b[3], (a[:4], b[:4])
         assert np.abs(a[4] - b[4]).max() < 1e-3, (a[4], b[4])
         assert (b[6], b[7]) == (ports[0][6], ports[0][7])  # one port result
+    assert ports[0][7] == a[7], (a[7], ports[0][7])
+    assert abs(ports[0][6] - a[6]) < 1e-4, (a[6], ports[0][6])

@@ -8,10 +8,18 @@ gates, the outputs held against each other where they are comparable.
   with partial overlap and local BA's returned cameras;
 - tests/test_lines.py's drawn segments, flat image and shifted
   descriptors;
-- tests/test_coherent_init.py's contaminated block and plane region.
+- tests/test_coherent_init.py's contaminated block and plane region;
+- slow, as the originals are: tests/test_line_frontend_eval.py's
+  repeatability under viewpoint and matching precision under
+  degradations (the port's detector and band descriptors on the natural
+  texture), and tests/test_line_ba_joint_experiment.py's production joint
+  solver against point-only BA and the corridor experiment (the port's
+  ``ba_solve`` with and without a ``LineWindow``; the experiment's dense
+  joint Gauss-Newton written on the port's line geometry).
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -356,3 +364,301 @@ def test_coherent_homography_recruits_plane_region(rng):
         assert rec_plain <= 0.85, rec_plain  # the hard gate drops plane members here
         assert rec_coh >= rec_plain + 0.05, (rec_plain, rec_coh)
         assert off_coh <= 0.15 * n_off, off_coh
+
+
+# ---- tests/test_line_frontend_eval.py (slow) --------------------------------
+
+
+def _port_detect(img, depth):
+    """``test_line_frontend_eval._detect`` on the port's detector: the
+    segments, keeping those that lie on the z = 6 background plane; the
+    same segments as the JAX detector's, within tests/test_torch_lines.py's
+    1e-3 px."""
+    from tests import test_line_frontend_eval as lfe
+
+    seg, valid, _ = tlines.detect_line_segments(T(np.asarray(img, np.float32)),
+                                                prng.PRNGKey(0))
+    seg = seg.numpy()[valid.numpy()]
+    H, W = depth.shape
+    keep = []
+    for sg in seg:
+        pts = np.stack([sg[0:2], sg[2:4], 0.5 * (sg[0:2] + sg[2:4])])
+        xs = np.clip(pts[:, 0].astype(int), 0, W - 1)
+        ys = np.clip(pts[:, 1].astype(int), 0, H - 1)
+        keep.append(bool((depth[ys, xs] > 4.5).all()))
+    seg = seg[np.array(keep, bool)]
+    np.testing.assert_allclose(seg, lfe._detect(img, depth=depth), rtol=0.0, atol=1e-3)
+    return seg
+
+
+def _port_match_precision(img_a, img_b, seg_a, seg_b, H_ab):
+    """``test_line_frontend_eval.match_precision`` on the port's band
+    descriptors."""
+    from tests import test_line_frontend_eval as lfe
+
+    if len(seg_a) < 3 or len(seg_b) < 3:
+        return 0.0, 0
+
+    def desc(img, seg):
+        sg = np.zeros((64, 4), np.float32)
+        v = np.zeros((64,), bool)
+        sg[: len(seg)] = seg[:64]
+        v[: len(seg)] = True
+        return tlines.line_band_descriptors(T(np.asarray(img, np.float32)), T(sg), T(v)).numpy()
+
+    best_ab = (desc(img_a, seg_a)[: len(seg_a)] @ desc(img_b, seg_b)[: len(seg_b)].T).argmax(1)
+    mapped = lfe._warp_seg(seg_a, H_ab)
+    good, n = 0, 0
+    for i in range(len(seg_a)):
+        if not any(lfe._seg_close(mapped[i], b) for b in seg_b):
+            continue
+        n += 1
+        good += bool(lfe._seg_close(mapped[i], seg_b[best_ab[i]]))
+    return good / max(n, 1), n
+
+
+@pytest.mark.slow
+def test_line_repeatability_under_viewpoint():
+    """The original's gates (0.7 at 5 degrees, 0.8 at 10) on the port's
+    segments, and the JAX detector's repeatability on the same views."""
+    from tests import synthetic_scene
+    from tests import test_line_frontend_eval as lfe
+
+    rng = np.random.default_rng(7)
+    tex = lfe._natural_texture(rng)
+    Ra, ta = lfe._pose(0.0)
+    img_a, dep_a = synthetic_scene.render(lfe.CAM, tex, Ra, ta)
+    seg_a = _port_detect(img_a, dep_a)
+    assert len(seg_a) >= 6, f"too few segments on natural texture: {len(seg_a)}"
+    for angle, floor in ((5.0, 0.7), (10.0, 0.8)):
+        Rb, tb = lfe._pose(angle)
+        img_b, dep_b = synthetic_scene.render(lfe.CAM, tex, Rb, tb)
+        H = lfe._homography(Ra, ta, Rb, tb)
+        rep = lfe.repeatability(seg_a, _port_detect(img_b, dep_b), H)
+        assert rep == lfe.repeatability(lfe._detect(img_a, depth=dep_a),
+                                        lfe._detect(img_b, depth=dep_b), H)
+        assert rep > floor, f"repeatability {rep:.2f} at {angle} deg viewpoint"
+
+
+@pytest.mark.slow
+def test_line_matching_precision_with_degradations():
+    """The original's gates on the port's descriptors; each case's
+    precision and matchable count equal the JAX package's."""
+    from tests import synthetic_scene
+    from tests import test_line_frontend_eval as lfe
+
+    rng = np.random.default_rng(11)
+    tex = lfe._natural_texture(rng)
+    Ra, ta = lfe._pose(0.0)
+    Rb, tb = lfe._pose(8.0)
+    img_a, dep_a = synthetic_scene.render(lfe.CAM, tex, Ra, ta)
+    img_b0, dep_b = synthetic_scene.render(lfe.CAM, tex, Rb, tb)
+    H = lfe._homography(Ra, ta, Rb, tb)
+    seg_a = _port_detect(img_a, dep_a)
+    cases = {
+        "clean": img_b0,
+        "low contrast": 0.55 * img_b0 + 50.0,
+        "noise": np.clip(img_b0 + rng.normal(0, 5.0, img_b0.shape), 0, 255).astype(np.float32),
+    }
+    results = {}
+    for name, img_b in cases.items():
+        seg_b = _port_detect(img_b, dep_b)
+        prec, n = _port_match_precision(img_a, img_b, seg_a, seg_b, H)
+        assert (prec, n) == lfe.match_precision(img_a, img_b, seg_a, seg_b, H), name
+        assert n >= 5, f"{name}: only {n} matchable pairs"
+        floor = 0.65 if name == "clean" else 0.5
+        assert prec >= floor, f"{name}: precision {prec:.2f} over {n} matches"
+        results[name] = prec
+    assert results["low contrast"] >= results["clean"] - 0.25
+    assert results["noise"] >= results["clean"] - 0.35
+
+
+# ---- tests/test_line_ba_joint_experiment.py (slow) --------------------------
+
+
+def _port_ba_problem(obs, pose0, pts0, n_cams, n_pts):
+    from structure_plp_slam_tpu_torch.models import bundle_adjustment as tba
+
+    n_obs = len(obs["cam"])
+    return tba.BAProblem(
+        cam_pose=T(np.stack(pose0), torch.float32), cam_fixed=T(np.arange(n_cams) == 0),
+        cam_valid=torch.ones(n_cams, dtype=torch.bool), lm_pos=T(pts0, torch.float32),
+        lm_valid=torch.ones(n_pts, dtype=torch.bool), obs_cam=T(obs["cam"], torch.int64),
+        obs_lm=T(obs["lm"], torch.int64), obs_uv=T(np.stack(obs["uv"]), torch.float32),
+        obs_xr=torch.full((n_obs,), -1.0), obs_inv_sigma_sq=torch.ones(n_obs),
+        obs_valid=torch.ones(n_obs, dtype=torch.bool))
+
+
+def _port_point_only(cam, obs, pose0, pts0, n_cams, n_pts):
+    from structure_plp_slam_tpu_torch.models import bundle_adjustment as tba
+
+    prob = _port_ba_problem(obs, pose0, pts0, n_cams, n_pts)
+    return tba.ba_solve(_port_camera(cam), prob, num_iters=12, cull_at_iters=()).cam_pose.numpy()
+
+
+def _port_lines0(lines0):
+    from structure_plp_slam_tpu_torch.ops import line_geometry as tlg
+
+    pl0 = tlg.plucker_from_endpoints(T(np.stack([p for p, _ in lines0]), torch.float32),
+                                     T(np.stack([q for _, q in lines0]), torch.float32))
+    return tlg.plucker_to_orthonormal(pl0)
+
+
+def _port_joint_production(cam, obs, lobs, pose0, pts0, lines0, n_cams, n_pts, n_lines):
+    """``ba_solve`` with a ``LineWindow``: the production joint solver."""
+    from structure_plp_slam_tpu_torch.models import bundle_adjustment as tba
+
+    U0, w0 = _port_lines0(lines0)
+    n_lobs = len(lobs["cam"])
+    lw = tba.LineWindow(
+        ln_U=U0, ln_w=w0, ln_valid=T(np.bincount(lobs["ln"], minlength=n_lines) >= 2),
+        lobs_cam=T(lobs["cam"], torch.int64), lobs_line=T(lobs["ln"], torch.int64),
+        lobs_seg=T(np.stack(lobs["seg"]), torch.float32), lobs_inv_sigma_sq=torch.ones(n_lobs),
+        lobs_valid=torch.ones(n_lobs, dtype=torch.bool))
+    prob = _port_ba_problem(obs, pose0, pts0, n_cams, n_pts)
+    return tba.ba_solve(_port_camera(cam), prob, lw, num_iters=15,
+                        cull_at_iters=()).cam_pose.numpy()
+
+
+def _port_joint(cam, obs, lobs, pose0, pts0, lines0, n_cams, n_pts, n_lines):
+    """``test_line_ba_joint_experiment._joint`` on the port's Lie group and
+    line geometry: the experiment's dense accept / reject
+    Levenberg-Marquardt over poses, points and orthonormal lines, its
+    Jacobian by forward mode."""
+    from structure_plp_slam_tpu_torch.ops import line_geometry as tlg
+    from structure_plp_slam_tpu_torch.ops import linalg as tlinalg
+
+    tcam = _port_camera(cam)
+    po, pm = T(obs["cam"], torch.int64), T(obs["lm"], torch.int64)
+    puv = T(np.stack(obs["uv"]), torch.float32)
+    lo, lnid = T(lobs["cam"], torch.int64), T(lobs["ln"], torch.int64)
+    lseg = T(np.stack(lobs["seg"]), torch.float32)
+    pose_init = T(np.stack(pose0), torch.float32)
+    pts_init = T(pts0, torch.float32)
+    U0, w0 = _port_lines0(lines0)
+    fixed = torch.arange(n_cams) == 0
+    sizes = (n_cams * 6, n_pts * 3, n_lines * 4)
+
+    def pose(dx_c):
+        R, t = tlie.se3_update(pose_init[:, :, :3], pose_init[:, :, 3], dx_c)
+        return (torch.where(fixed[:, None, None], pose_init[:, :, :3], R),
+                torch.where(fixed[:, None], pose_init[:, :, 3], t))
+
+    def res_flat(x):
+        dx_c, dx_p, dx_l = torch.split(x, sizes)
+        R, t = pose(dx_c.reshape(n_cams, 6))
+        X = pts_init + dx_p.reshape(n_pts, 3)
+        pc = torch.einsum("oij,oj->oi", R[po], X[pm]) + t[po]
+        z = torch.clamp(pc[:, 2], min=1e-3)
+        uv = torch.stack([tcam.fx * pc[:, 0] / z + tcam.cx, tcam.fy * pc[:, 1] / z + tcam.cy], 1)
+        U2, w2 = tlg.orthonormal_update(U0, w0, dx_l.reshape(n_lines, 4))
+        pl_c = tlg.transform_line(tlg.orthonormal_to_plucker(U2, w2)[lnid], R[lo], t[lo])
+        r_ln = tlg.endpoint_line_distances(tlg.project_line(tcam, pl_c), lseg[:, 0:2],
+                                           lseg[:, 2:4])
+        return torch.cat([(uv - puv).reshape(-1), r_ln.reshape(-1)])
+
+    x = torch.zeros(sum(sizes))
+    lam = 1e-2
+    cost = float(torch.sum(res_flat(x) ** 2))
+    for _ in range(40):
+        J = torch.func.jacfwd(res_flat)(x)
+        r = res_flat(x)
+        H = J.T @ J
+        D = torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
+        accepted = False
+        for _try in range(6):
+            dx = tlinalg.solve(H + lam * D, J.T @ r)
+            if not bool(torch.isfinite(dx).all()):
+                lam *= 10.0
+                continue
+            c_new = float(torch.sum(res_flat(x - dx) ** 2))
+            if c_new < cost:
+                x, cost = x - dx, c_new
+                lam = max(lam / 3.0, 1e-7)
+                accepted = True
+                break
+            lam *= 10.0
+        if not accepted:
+            break
+    R, t = pose(torch.split(x, sizes)[0].reshape(n_cams, 6))
+    return torch.cat([R, t[:, :, None]], 2).numpy()
+
+
+@pytest.mark.slow
+def test_production_joint_solver_beats_point_only():
+    """The original's gate (the joint solve under half the point-only
+    pose error, averaged over seeds 5-7) on the port's ``ba_solve``, with
+    the JAX package's errors on the same corridors beside it (printed;
+    within 1e-3 m of the port's)."""
+    from tests import test_line_ba_joint_experiment as lbx
+
+    errs_a, errs_p, jax_a, jax_p = [], [], [], []
+    for s in range(3):
+        rng = np.random.default_rng(5 + s)
+        cam, poses, _, _, obs, lobs, pose0, pts0, lines0 = lbx._corridor(
+            rng, n_cams=6, n_pts=12, n_lines=20)
+        errs_a.append(lbx._pose_err(_port_point_only(cam, obs, pose0, pts0, 6, 12), poses))
+        errs_p.append(lbx._pose_err(_port_joint_production(cam, obs, lobs, pose0, pts0, lines0,
+                                                           6, 12, 20), poses))
+        jax_a.append(lbx._pose_err(lbx._point_only(cam, obs, pose0, pts0, 6, 12), poses))
+        jax_p.append(lbx._pose_err(lbx._joint_production(cam, obs, lobs, pose0, pts0, lines0,
+                                                         6, 12, 20), poses))
+    a, p = float(np.mean(errs_a)), float(np.mean(errs_p))
+    print(f"\ncorridor pose RMSE, port: point-only {a * 100:.2f} cm, production joint "
+          f"{p * 100:.2f} cm; JAX package: {np.mean(jax_a) * 100:.2f} / "
+          f"{np.mean(jax_p) * 100:.2f} cm")
+    assert p < 0.5 * a, f"joint {p} not clearly better than point-only {a}"
+    assert np.abs(np.subtract(errs_a, jax_a)).max() < 1e-3
+    assert np.abs(np.subtract(errs_p, jax_p)).max() < 1e-3
+
+
+@pytest.mark.slow
+def test_corridor_alternation_vs_joint():
+    """The original's gates on the port: point-only BA and the
+    experiment's joint point + line Gauss-Newton both improve on the
+    perturbed initialization, and the joint solve is never much worse
+    than point-only; with the JAX package's errors on the same corridors
+    beside them (printed). Per seed the port's point-only error is within
+    1e-3 m of JAX's, as the production solver's copy holds it. The joint
+    solve is a damped Gauss-Newton on a rank-deficient f32 system (the
+    monocular scale is free), whose rounding moves the iterate along the
+    cost's flat valley: JAX's own solve, its initial points nudged by one
+    ulp (four nudges), moves by up to 2.1e-2 m at seed 7 (printed). So its per-seed
+    gap is held within 1e-3 m or that spread of JAX's, whichever is
+    larger."""
+    from tests import test_line_ba_joint_experiment as lbx
+
+    errs_a, errs_b, errs_0, jax_a, jax_b, spread = [], [], [], [], [], []
+    for s in range(3):
+        rng = np.random.default_rng(5 + s)
+        cam, poses, _, _, obs, lobs, pose0, pts0, lines0 = lbx._corridor(
+            rng, n_cams=6, n_pts=12, n_lines=20)
+        errs_0.append(lbx._pose_err(np.stack(pose0), poses))
+        errs_a.append(lbx._pose_err(_port_point_only(cam, obs, pose0, pts0, 6, 12), poses))
+        errs_b.append(lbx._pose_err(_port_joint(cam, obs, lobs, pose0, pts0, lines0, 6, 12, 20),
+                                    poses))
+        jax_a.append(lbx._pose_err(lbx._point_only(cam, obs, pose0, pts0, 6, 12), poses))
+        jax_b.append(lbx._pose_err(lbx._joint(cam, obs, lobs, pose0, pts0, lines0, 6, 12, 20),
+                                   poses))
+        spread.append(max(abs(lbx._pose_err(lbx._joint(cam, obs, lobs, pose0, p, lines0,
+                                                        6, 12, 20), poses) - jax_b[-1])
+                          for p in _ulp_nudges(pts0, 4)))
+    a, b, z = (float(np.mean(v)) for v in (errs_a, errs_b, errs_0))
+    print(f"\ncorridor pose RMSE, port: init {z * 100:.2f} cm, point-only {a * 100:.2f} cm, "
+          f"joint point+line {b * 100:.2f} cm; JAX package: {np.mean(jax_a) * 100:.2f} / "
+          f"{np.mean(jax_b) * 100:.2f} cm; joint per seed: gap to JAX "
+          f"{np.abs(np.subtract(errs_b, jax_b))} m, JAX's one-ulp spread {np.array(spread)} m")
+    assert a < z
+    assert b < z
+    assert b < a * 1.5 + 0.01
+    assert np.abs(np.subtract(errs_a, jax_a)).max() < 1e-3
+    assert (np.abs(np.subtract(errs_b, jax_b)) <= np.maximum(1e-3, spread)).all()
+
+
+def _ulp_nudges(pts, n):
+    """``n`` copies of ``pts`` (as f32), each entry moved one ulp up or
+    down at random (seeded)."""
+    pts = np.asarray(pts, np.float32)
+    rng = np.random.default_rng(100)
+    return [np.where(rng.random(pts.shape) < 0.5, np.nextafter(pts, np.float32(np.inf)),
+                     np.nextafter(pts, np.float32(-np.inf))) for _ in range(n)]

@@ -5,13 +5,18 @@ torch's CPU reduction to one value splits its sum across threads past
 small, and MKL's Cholesky factorization past ~128 rows splits its
 updates, so their last bits follow ``torch.set_num_threads``. The port
 sums those places in a fixed order on the CPU
-(``utils/types.fixed_order_sum``, ``ops/linalg.block_cholesky_solve``).
+(``utils/types.fixed_order_sum``) and factors with scipy's LAPACK, which
+XLA:CPU calls and torch's thread count does not reach
+(``ops/linalg.block_cholesky_solve``).
 Here the init and BA paths run at 1, 2 and 3 torch threads at the full
 width of chip_smoke.py's monocular path (640x480, 1000 keypoints over 8
 levels, 1,032 slots) and their outputs must be bit-identical: the
 two-view init on the port frontend's features, local BA, the
 neighbours' triangulation and the motion-only pose solve on the map the
-port System builds from the first two frames. The slow case runs the
+port System builds from the first two frames; and the loop path's dense
+solves, the global BA's reduced camera system (64 keyframes, 384 rows)
+and the pose graph's Gauss-Newton (a 32-keyframe circle, 224 rows). The
+slow case runs the
 whole 40-frame monocular System at 1 and 3 threads: one trajectory, one
 ATE.
 """
@@ -26,7 +31,8 @@ from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
 from structure_plp_slam_tpu_torch.config import Config
 from structure_plp_slam_tpu_torch.data import map_state as ms
 from structure_plp_slam_tpu_torch.io import trajectory as traj_io
-from structure_plp_slam_tpu_torch.models import initializer, mapper, pose_opt
+from structure_plp_slam_tpu_torch.models import (global_ba, initializer, mapper, pose_graph,
+                                                 pose_opt)
 from structure_plp_slam_tpu_torch.ops.orb import OrbParams
 from structure_plp_slam_tpu_torch.system import System
 from structure_plp_slam_tpu_torch.testing import synthetic_scene
@@ -138,6 +144,36 @@ def test_optimize_pose_same_at_threads():
     out = _same_at_threads(lambda: pose_opt.optimize_pose(
         CAM, f(R0), f([0.02, 0.0, 0.0]), f(X), f(uv), f(-np.ones(n)), f(np.ones(n)), valid))
     assert np.abs(np.asarray(out[1])).max() < 5e-3  # back near t = 0
+
+
+def test_global_ba_camera_solve_same_at_threads():
+    """The global BA's reduced camera system at 64 keyframes (a 384-row
+    Cholesky, past the size where MKL's splits its updates by thread):
+    the blocks of a random SPD matrix, keyframe 0 fixed."""
+    K = 64
+    a = np.random.default_rng(5).normal(size=(6 * K, 6 * K + 8)).astype(np.float32)
+    blocks = torch.from_numpy(a @ a.T).reshape(K, 6, K, 6).permute(0, 2, 1, 3)
+    diag = torch.arange(K)
+    Hcc = blocks[diag, diag].clone()
+    S_red = -blocks.clone()
+    S_red[diag, diag] = 0.0
+    rhs = torch.from_numpy(np.random.default_rng(6).normal(size=(K, 6)).astype(np.float32))
+    free = torch.arange(K) > 0
+    out = _same_at_threads(lambda: global_ba._camera_solve(S_red, Hcc, rhs, free, 1e-4))
+    dx = np.asarray(out[0])
+    assert np.isfinite(dx).all() and not dx[0].any()
+
+
+def test_pose_graph_same_at_threads():
+    """The loop fix's dense pose graph on a 32-keyframe circle with two
+    loop edges (tests/test_torch_loop.py's problem; a 224-row Cholesky
+    per Gauss-Newton step)."""
+    from tests.test_torch_loop import _circle_problem
+
+    arrays, _ = _circle_problem(K=32)
+    prob = pose_graph.PoseGraphProblem(**{k: torch.from_numpy(v) for k, v in arrays.items()})
+    out = _same_at_threads(lambda: pose_graph.optimize_pose_graph(prob, num_iters=10))
+    assert np.isfinite(np.asarray(out[1])).all()
 
 
 @pytest.mark.slow
