@@ -22,7 +22,7 @@ from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.data import map_state as ms
 from structure_plp_slam_tpu_torch.models import bundle_adjustment as ba
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
-from structure_plp_slam_tpu_torch.ops import lie, matching, triangulation
+from structure_plp_slam_tpu_torch.ops import lie, linalg, matching, triangulation
 from structure_plp_slam_tpu_torch.ops import line_geometry as lg
 from structure_plp_slam_tpu_torch.ops.fused_match import fused_match
 from structure_plp_slam_tpu_torch.ops.hamming import popcount_u32
@@ -63,16 +63,19 @@ def insert_keyframe(camera, state: ms.MapState, slot, pose, timestamp, feats,
     rank[torch.argsort(d_sort, stable=True)] = torch.arange(n, device=dev)
     depth_ok = seedable & ((depth < camera.true_depth_threshold) | (rank < 100))
     # Back-project: world = R^T (z * K^-1 uv~ - t).
+    # On the CPU in XLA:CPU's arithmetic for the JAX function (linalg's
+    # helpers; the plain ops on the card).
     R, t = pose[:, :3], pose[:, 3]
-    x = (feats["xy"][:, 0] - camera.cx) / camera.fx * depth
-    y = (feats["xy"][:, 1] - camera.cy) / camera.fy * depth
+    x = linalg.div_const(feats["xy"][:, 0] - camera.cx, camera.fx) * depth
+    y = linalg.div_const(feats["xy"][:, 1] - camera.cy, camera.fy) * depth
     pc = torch.stack([x, y, depth], dim=-1)
-    pw = (pc - t) @ R
+    pw = linalg.rows_matmul3(pc - t, R)
     slots = base_lm_slot + torch.cumsum(depth_ok.to(torch.int64), 0) - 1
     depth_ok = depth_ok & (slots < L)  # capacity gate
-    dist_max = torch.linalg.norm(pc, dim=-1) * torch.pow(1.2, feats["level"].to(torch.float32))
-    dist_min = dist_max / (1.2**7)
-    view = _unit(pw - (-(t @ R))[None, :])
+    dist_max = linalg.norm(pc) * torch.pow(1.2, feats["level"].to(torch.float32))
+    dist_min = linalg.div_const(dist_max, 1.2**7)
+    view = pw - (-linalg.vecmat(t, R))[None, :]
+    view = view / torch.clamp(linalg.norm(view), min=1e-9)[:, None]
     state = ms.add_landmarks(
         state, slots, pw, feats["desc"], view, dist_min, dist_max,
         torch.full((n,), int(slot), dtype=torch.int64, device=dev), depth_ok,

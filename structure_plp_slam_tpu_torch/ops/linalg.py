@@ -370,6 +370,46 @@ def fms(x, y, z):
     return _fma_round(x.double() * y.double(), -z)
 
 
+def matvec(a, v):
+    """``a @ v`` of a small matrix and a vector; on the CPU one fused
+    multiply-add chain per output, as XLA:CPU's gemv sums it (:func:`einsum_fma`);
+    on the card ``a @ v``."""
+    if a.device.type != "cpu":
+        return a @ v
+    return einsum_fma("...ij,...j->...i", a, v)
+
+
+def vecmat(v, a):
+    """``v @ a`` of a vector and a small matrix, summed on the CPU as
+    :func:`matvec`; on the card ``v @ a``."""
+    if a.device.type != "cpu":
+        return v @ a
+    return einsum_fma("...j,...jk->...k", v, a)
+
+
+def div_const(x, c: float):
+    """``x / c`` for a Python number ``c``. XLA:CPU folds a division by a
+    constant into a product with the constant's f32 reciprocal, and so does
+    the CPU here; on the card the division."""
+    if x.device.type != "cpu":
+        return x / c
+    return x * (torch.tensor(1.0, dtype=x.dtype) / torch.tensor(c, dtype=x.dtype))
+
+
+def rows_matmul3(a, m):
+    """``a @ m`` for rows ``a [..., 3]`` and a matrix ``m [3, 3]``. On the
+    CPU as XLA:CPU's kernel for this dot computes it on AVX-512 (the SLP
+    vectorizer packs the first two output columns): columns 0 and 1 as
+    three rounded products added left to right from 0, column 2 one fused
+    multiply-add chain from 0; on the card ``a @ m``."""
+    if a.device.type != "cpu":
+        return a @ m
+    p = a[..., :, None] * m  # [..., k, j]: a_k m_kj
+    c01 = ((0.0 + p[..., 0, :2]) + p[..., 1, :2]) + p[..., 2, :2]
+    c2 = fma(a[..., 2], m[2, 2], fma(a[..., 1], m[1, 2], a[..., 0] * m[0, 2]))
+    return torch.cat([c01, c2[..., None]], dim=-1)
+
+
 def matmul(a, b):
     """``a @ b`` of small matrices; on the CPU summed as XLA:CPU sums it
     (:func:`einsum_fma`)."""

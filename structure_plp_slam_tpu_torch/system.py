@@ -99,7 +99,7 @@ from structure_plp_slam_tpu_torch.models import loop_closer as loop_mod
 from structure_plp_slam_tpu_torch.models import mapper, planar_mapper, tracker
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.models.relocalizer import Relocalizer
-from structure_plp_slam_tpu_torch.ops import lie
+from structure_plp_slam_tpu_torch.ops import lie, linalg
 from structure_plp_slam_tpu_torch.ops import orb as orb_ops
 from structure_plp_slam_tpu_torch.parallel.distributed_ba import LandmarkMesh
 from structure_plp_slam_tpu_torch.publish.frame_publisher import FramePublisher
@@ -171,8 +171,8 @@ def _pack_decision(state, res, next_lm):
     """Fuse every per-frame host-needed value into one f32 vector."""
     kfp = state.kf_pose[res.ref_kf]
     R_ref, t_ref = kfp[:, :3], kfp[:, 3]
-    R_rel = res.R @ R_ref.T
-    t_rel = res.t - R_rel @ t_ref
+    R_rel = linalg.matmul(res.R, R_ref.T)
+    t_rel = res.t - linalg.matvec(R_rel, t_ref)
     P = torch.cat([res.R, res.t[:, None]], 1)
     rel = torch.cat([R_rel, t_rel[:, None]], 1)
     dev = state.device
@@ -200,8 +200,10 @@ def _track_step(camera, state, feats, carry: _TrackCarry, inv_sigma_sq, obs_ind,
     landmark statistics, line tracking, motion-model update, decision
     packing, the viewer's plane id per keypoint. Returns (state, res, carry,
     packed, seg_lines or None, kp_plane)."""
-    R_pred = carry.Rv @ carry.R
-    t_pred = carry.Rv @ carry.t + carry.tv
+    # The motion model's 3x3 products in XLA:CPU's order on the CPU (one
+    # multiply-add chain per entry; the plain products on the card).
+    R_pred = linalg.matmul(carry.Rv, carry.R)
+    t_pred = linalg.matvec(carry.Rv, carry.t) + carry.tv
     res = tracker.track_frame(
         camera, state, feats, R_pred, t_pred, carry.last_kp_lm, carry.ref_kf,
         inv_sigma_sq, obs_ind, min_obs, num_levels=num_levels, scale_factor=scale_factor,
@@ -223,9 +225,9 @@ def _track_step(camera, state, feats, carry: _TrackCarry, inv_sigma_sq, obs_ind,
                 (res.kp_lm >= 0) & feats["valid"], res.R, res.t,
             )
         res = res._replace(R=R_l, t=t_l)
-    Rv2 = res.R @ carry.R.T
+    Rv2 = linalg.matmul(res.R, carry.R.T)
     carry2 = _TrackCarry(
-        R=res.R, t=res.t, Rv=Rv2, tv=res.t - Rv2 @ carry.t,
+        R=res.R, t=res.t, Rv=Rv2, tv=res.t - linalg.matvec(Rv2, carry.t),
         last_kp_lm=res.kp_lm, ref_kf=res.ref_kf,
     )
     L = state.lm_pos.shape[0]

@@ -149,3 +149,21 @@ def test_chain_does_work():
     assert int(stages["insert_keyframe"][1][1]) > 30
     cams = np.asarray(stages["local_ba"][1][2])
     assert (cams >= 0).sum() >= 3  # local BA ran over a multi-camera window
+
+
+def test_insert_keyframe_equals_jax_bit_for_bit():
+    """The RGB-D landmark seeding computes XLA:CPU's arithmetic for the JAX
+    function (the divisions by fx, fy and 1.2^7 as products with their f32
+    reciprocals, the [N, 3] x [3, 3] dot as XLA's AVX-512 kernel sums it,
+    the norms as multiply-add chains; ROADMAP C18): every field of the
+    state it writes is the JAX package's bit for bit."""
+    _, _, _, _, _, stages = jax_chain()
+    jst, created = stages["insert_keyframe"][1]
+    tst, tcreated = _run_port("insert_keyframe")
+    assert int(tcreated) == int(created) > 30
+    t = tms.to_numpy(tst)
+    for f in jst._fields:
+        j = np.asarray(getattr(jst, f))
+        if j.dtype == np.uint32:
+            j = j.view(np.int32)
+        assert np.array_equal(t[f], j.astype(t[f].dtype)), f

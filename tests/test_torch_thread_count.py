@@ -132,7 +132,11 @@ def test_triangulate_with_neighbors_same_at_threads():
 
 def test_optimize_pose_same_at_threads():
     """The tracker's stage-2 solve size: 8192 map points against one
-    frame's observations, from a pose 2 cm and 0.5 degrees off."""
+    frame's observations, from a pose 2 cm and 0.5 degrees off. Both of
+    the port's solves: the public ``optimize_pose`` (on the CPU the
+    single-threaded C source, ``ops/pose_cpu``) and the PyTorch solve the
+    card runs (``_optimize_pose_torch``), whose sums go through
+    ``fixed_order_sum``."""
     rng = np.random.default_rng(3)
     n = 8192
     X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(2, 9, n)], 1)
@@ -141,9 +145,10 @@ def test_optimize_pose_same_at_threads():
     R0 = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
     f = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
     valid = torch.from_numpy(rng.uniform(size=n) < 0.9)
-    out = _same_at_threads(lambda: pose_opt.optimize_pose(
-        CAM, f(R0), f([0.02, 0.0, 0.0]), f(X), f(uv), f(-np.ones(n)), f(np.ones(n)), valid))
-    assert np.abs(np.asarray(out[1])).max() < 5e-3  # back near t = 0
+    for solve in (pose_opt.optimize_pose, pose_opt._optimize_pose_torch):
+        out = _same_at_threads(lambda solve=solve: solve(
+            CAM, f(R0), f([0.02, 0.0, 0.0]), f(X), f(uv), f(-np.ones(n)), f(np.ones(n)), valid))
+        assert np.abs(np.asarray(out[1])).max() < 5e-3  # back near t = 0
 
 
 def test_global_ba_camera_solve_same_at_threads():

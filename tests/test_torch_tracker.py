@@ -167,24 +167,30 @@ def _pose_problem(rng, B=3, N=240):
             xr.astype(f32), info.astype(f32), valid)
 
 
-@pytest.mark.parametrize("batched", [False, True])
-def test_optimize_pose_matches_jax(batched):
+@pytest.mark.parametrize(("batched", "solve"), [
+    (False, "optimize_pose"), (True, "optimize_pose"),
+    (False, "_optimize_pose_torch"), (True, "_optimize_pose_torch")],
+    ids=["False", "True", "torch-False", "torch-True"])
+def test_optimize_pose_matches_jax(batched, solve):
     """The LM motion-only solve: one pose, or the tracker's batch of 3
     strategies (JAX vmaps the same solve). Pose within 1e-4, inlier masks
     equal on >= 99% of the observations (a chi2 gate can flip on f32
-    order), inlier counts within 1%."""
+    order), inlier counts within 1%. Both solves of the port: the public
+    ``optimize_pose`` (on the CPU the C source, ``ops/pose_cpu``) and the
+    PyTorch solve the card runs (``_optimize_pose_torch``)."""
+    fn = getattr(tpose_opt, solve)
     R0, t0, X, uv, xr, info, valid = _pose_problem(np.random.default_rng(9))
     if batched:
         kw = dict(num_trials=2, num_iters=8)
         jfn = jax.vmap(
             lambda p, v: jpose_opt.optimize_pose(JCAM, R0, t0, p, uv, xr, info, v, **kw))
         jres = jfn(jnp.asarray(X), jnp.asarray(valid))
-        tres = tpose_opt.optimize_pose(TCAM, to_torch(R0), to_torch(t0), to_torch(X),
+        tres = fn(TCAM, to_torch(R0), to_torch(t0), to_torch(X),
                                        to_torch(uv), to_torch(xr), to_torch(info),
                                        to_torch(valid), **kw)
     else:
         jres = jpose_opt.optimize_pose(JCAM, R0, t0, X[0], uv, xr, info, valid[0])
-        tres = tpose_opt.optimize_pose(TCAM, to_torch(R0), to_torch(t0), to_torch(X[0]),
+        tres = fn(TCAM, to_torch(R0), to_torch(t0), to_torch(X[0]),
                                        to_torch(uv), to_torch(xr), to_torch(info),
                                        to_torch(valid[0]))
     np.testing.assert_allclose(tres.R.numpy(), np.asarray(jres.R), rtol=0, atol=1e-4)
