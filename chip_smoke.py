@@ -164,7 +164,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    CPU (scipy's LAPACK, the routines XLA:CPU calls) at the call sites'
    shapes: values within 1e-4 of the CPU's largest, singular and eigen
    vectors up to sign (cuSOLVER picks its own), a failed Cholesky NaN on
-   both;
+   both; (e) init_ba_checks: the monocular two-view init's BA (640x480,
+   seed 42) on the card (the PyTorch iteration) against the CPU
+   (ops/ba_cpu's C source, XLA:CPU's arithmetic): poses within 1e-4,
+   points within 1e-3 m; match_stereo at phase 8 (b)'s two cameras, card
+   against CPU: masks equal, x_right within 1e-3 px, depth within 1e-4
+   relative;
 20. one JSON line with each path's numbers, one with the rectifier's, one
    with phase 19's, one with every kernel's numbers (launches per path
    added), the card line, and the result line ``{"ok": true, "device":
@@ -1758,6 +1763,93 @@ def linalg_checks(device="cuda"):
     return res
 
 
+def init_ba_checks(device="cuda"):
+    """Phase 19 (e): the two CPU routes this repository computes as XLA:CPU
+    does, each on the card against the CPU. (1) The monocular System's
+    two-view BA after its init (640x480, 1000 keypoints over 8 levels,
+    numpy seed 42, the capacities of phase 7's full-width System): its
+    first ``mapper.local_ba`` call's input, recorded on a CPU System, through
+    ``local_ba(..., _xla_init=True)`` on the card (the PyTorch iteration)
+    and on the CPU (``ops/ba_cpu``'s C source): poses within 1e-4, points
+    within 1e-3 m (the mapper tests' bounds), the detached observations
+    equal on >= 99% of slots. (2) ``match_stereo`` on phase 8 (b)'s first
+    pair at each dataset camera, with the CPU extractor's features on both:
+    masks equal, x_right within 1e-3 px, depth within 1e-4 relative (the SAD
+    sums: XLA:CPU's tree order on the CPU, ``torch.sum`` on the card).
+    Returns each check's largest difference."""
+    from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
+    from structure_plp_slam_tpu_torch.config import Config
+    from structure_plp_slam_tpu_torch.data import map_state
+    from structure_plp_slam_tpu_torch.models import mapper
+    from structure_plp_slam_tpu_torch.ops import matching, stereo
+    from structure_plp_slam_tpu_torch.ops.orb import OrbExtractor, OrbParams
+    from structure_plp_slam_tpu_torch.system import System
+    from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+    res = {}
+    cam = Camera(name="b", setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE,
+                 cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5, fps=30.0)
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12, step=0.08)
+    calls = []
+    local_ba = mapper.local_ba
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return local_ba(*a, **k)
+
+    slam = System(Config(camera=cam, orb=OrbParams(max_num_keypts=1000, num_levels=8), raw={}),
+                  device="cpu", enable_loop_closing=False, max_keyframes=32,
+                  max_landmarks=8192)
+    mapper.local_ba = record
+    try:
+        slam.startup()
+        for img, _, ts in frames:
+            slam.feed_monocular_frame(img, ts)
+            if calls:
+                break
+        slam.shutdown()
+    finally:
+        mapper.local_ba = local_ba
+    if not calls or not calls[0][1].get("_xla_init"):
+        raise AssertionError("phase 19 (e): the monocular System ran no init BA")
+    (camera, state, slot, isg), kw = calls[0]
+    host = map_state.to_numpy(local_ba(camera, state, slot, isg, **kw)[0])
+    card_state = map_state.from_numpy(map_state.to_numpy(state), device)
+    card = map_state.to_numpy(local_ba(camera, card_state, slot, isg.to(device), **kw)[0])
+    moved = float(np.abs(host["kf_pose"][1] - map_state.to_numpy(state)["kf_pose"][1]).max())
+    res["init_ba"] = {"pose_abs": float(np.abs(card["kf_pose"] - host["kf_pose"]).max()),
+                      "points_abs": float(np.abs(card["lm_pos"] - host["lm_pos"]).max()),
+                      "obs_equal_share": float((card["kf_lm_idx"] == host["kf_lm_idx"]).mean()),
+                      "pose_moved": moved}
+    print(f"init BA (640x480, seed 42): card against the CPU's XLA:CPU iteration: "
+          f"{res['init_ba']}")
+    gate("init_ba", res["init_ba"]["pose_abs"] < 1e-4 and res["init_ba"]["points_abs"] < 1e-3
+         and res["init_ba"]["obs_equal_share"] >= 0.99 and moved > 0, f"{res['init_ba']}")
+
+    for name in DATASET_CAMERAS:
+        scam = dataset_config(name).camera
+        left, right, _ = dataset_pairs(scam, 1)[0][0]
+        n_kps = dataset_config(name).orb.max_num_keypts
+        ex = OrbExtractor(scam.rows, scam.cols, OrbParams(max_num_keypts=n_kps, num_levels=8))
+        gl, gr = (torch.from_numpy(np.ascontiguousarray(i, dtype=np.float32))
+                  for i in (left, right))
+        fl, fr = ex(gl), ex(gr)
+        sf = torch.from_numpy(ex.params.scale_factors().astype(np.float32))
+        args = [gl, gr, fl["xy"], fl["level"], matching.unpack_desc_bits(fl["desc"]),
+                fl["valid"], fr["xy"], fr["level"], matching.unpack_desc_bits(fr["desc"]),
+                fr["valid"], sf]
+        xh, dh, okh = stereo.match_stereo(*args, focal_x_baseline=scam.focal_x_baseline)
+        xc, dc, okc = (t.cpu() for t in stereo.match_stereo(
+            *(a.to(device) for a in args), focal_x_baseline=scam.focal_x_baseline))
+        r = res[f"match_stereo {name}"] = {
+            "matched": int(okh.sum()), "x_right_abs": float((xh - xc).abs().max()),
+            "depth_rel": float(((dh - dc).abs()[okh] / dh[okh]).max()) if bool(okh.any()) else 0.0}
+        print(f"match_stereo ({name}): card against the CPU: {r}")
+        gate("init_ba", torch.equal(okh, okc) and r["matched"] > 300 and r["x_right_abs"] < 1e-3
+             and r["depth_rel"] < 1e-4, f"match_stereo {name}: {r}")
+    return res
+
+
 def knob_checks(cam, slam, frames, device="cuda"):
     """Phase 19 (b): public parameters the JAX package takes and the port
     now takes too, each at a non-default value on the card against the
@@ -2887,6 +2979,7 @@ def main():
     ops["knobs"] = knob_checks(cam, slam, frames)
     ops["dataset_frontends"] = dataset_frontends()
     ops["linalg"] = linalg_checks()
+    ops["xla_cpu_routes"] = init_ba_checks()
     phase_done("19")
     for k in kernels:
         site = k["name"].split("@")[1]

@@ -21,6 +21,13 @@ distances to the projected line are the residuals
 (reproj_edge_line3d_orthonormal.h:49-150). Their forward-mode Jacobians
 come from ``torch.func``; the line blocks are eliminated like the point
 blocks.
+
+The monocular two-view init's BA (``_xla_init``, passed by the System's
+init only) computes each iteration on the CPU as XLA:CPU compiles the JAX
+package's init BA (``ops/ba_cpu``, a C source); the loop and its policy
+(iterations, damping, chi2 gates, step limits, the cull schedule) stay here
+and ``_ba_policy`` passes the constants. Every other call, and the card,
+runs the PyTorch iteration.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from structure_plp_slam_tpu_torch.camera import base as cam_base
-from structure_plp_slam_tpu_torch.ops import lie, linalg, robust
+from structure_plp_slam_tpu_torch.ops import ba_cpu, lie, linalg, robust
 from structure_plp_slam_tpu_torch.ops import line_geometry as lg
 from structure_plp_slam_tpu_torch.ops.linalg import inv3x3
 from structure_plp_slam_tpu_torch.utils.types import fixed_order_sum, rdiv
@@ -144,16 +151,29 @@ def _line_chi2(camera, lines, cam_pose, ln_U, ln_w):
     return torch.sum(r * r, -1) * lines.lobs_inv_sigma_sq
 
 
+# The step limits: the camera step's trust region (rotation, translation)
+# and the landmark step's clip.
+_MAX_ROT, _MAX_TRANS, _MAX_LM_STEP = 0.3, 5.0, 5.0
+
+
+def _ba_policy(damping: float) -> tuple:
+    """The solve's constants in the order ``ops/ba_cpu`` passes them to its C
+    source: the damping, the monocular chi2 gate, the step limits."""
+    return (damping, robust.CHI2_2D, _MAX_ROT, _MAX_TRANS, _MAX_LM_STEP)
+
+
 def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: int = 15,
              cull_at_iters: tuple = (5,), damping: float = 1e-4,
-             obs_grid: bool = False) -> BAResult:
+             obs_grid: bool = False, _xla_init: bool = False) -> BAResult:
     """Damped Gauss-Newton with Schur elimination on a BA window, with
     the line terms of ``lines`` when given. ``cull_at_iters``: iterations
     after which observations are chi2-gated (the reference's two-phase
     structure). ``obs_grid`` is the JAX package's promise that the
     observations form a dense [C, O/C] grid, which there picks a cheaper
     contraction; the port sums by (landmark, camera) bin whatever the
-    layout, so the promise leaves the solve as it is."""
+    layout, so the promise leaves the solve as it is. ``_xla_init``: the
+    System's two-view init is the caller; on the CPU (a pinhole camera,
+    no lines) each iteration is then XLA:CPU's arithmetic (``ops/ba_cpu``)."""
     C = prob.cam_pose.shape[0]
     M = prob.lm_pos.shape[0]
     dev = prob.cam_pose.device
@@ -187,7 +207,18 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
                                                chi2_l0.shape[0] - 1).reshape(1))[0]
         med = torch.where(torch.isfinite(med), med, zero)
         lobs_live = lobs_live & (chi2_l0 <= torch.clamp(9.0 * med, min=9.0 * robust.CHI2_2D))
+    xla = _xla_init and ba_cpu.serves(camera, prob, lines)
+    if xla:
+        ba_cpu.check(prob)
+        policy = _ba_policy(damping)
     for it in range(num_iters):
+        if xla:
+            cam_pose, lm_pos = ba_cpu.iteration(camera, prob, cam_pose, lm_pos, obs_live, free,
+                                                policy=policy)
+            if it in cull_at_iters:
+                chi2 = ba_cpu.obs_chi2(camera, prob, cam_pose, lm_pos, policy=policy)
+                obs_live = obs_live & (chi2 <= delta_sq)
+            continue
         pc, r_uv, r_xr = _project_residuals(camera, cam_pose, lm_pos, prob)
         chi2 = _obs_chi2(prob, r_uv, r_xr, has_stereo)
         w = torch.where(
@@ -284,8 +315,8 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
         Wt_dxc = torch.einsum("mcij,ci->mj", W, dx_c)
         dx_l = torch.einsum("mij,mj->mi", Hll_inv, bl - Wt_dxc)
         ok = torch.isfinite(dx_c).all() & torch.isfinite(dx_l).all()
-        dx_c = torch.where(ok, lie.clamp_tangent(dx_c, 0.3, 5.0), zero)
-        dx_l = torch.where(ok, torch.clamp(dx_l, -5.0, 5.0), zero)
+        dx_c = torch.where(ok, lie.clamp_tangent(dx_c, _MAX_ROT, _MAX_TRANS), zero)
+        dx_l = torch.where(ok, torch.clamp(dx_l, -_MAX_LM_STEP, _MAX_LM_STEP), zero)
 
         R_new, t_new = lie.se3_update(cam_pose[:, :, :3], cam_pose[:, :, 3], dx_c)
         cam_pose = torch.where(free[:, None, None], lie.pack_pose(R_new, t_new), cam_pose)
@@ -310,10 +341,13 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
     # Re-project rotations onto SO(3); fixed cameras keep their input pose.
     cam_pose = lie.pack_pose(lie.orthonormalize(cam_pose[:, :, :3]), cam_pose[:, :, 3])
     cam_pose = torch.where(free[:, None, None], cam_pose, prob.cam_pose)
-    _, r_uv, r_xr = _project_residuals(camera, cam_pose, lm_pos, prob)
-    chi2 = _obs_chi2(prob, r_uv, r_xr, has_stereo)
+    if xla:
+        chi2 = ba_cpu.obs_chi2(camera, prob, cam_pose, lm_pos, policy=policy)
+    else:
+        _, r_uv, r_xr = _project_residuals(camera, cam_pose, lm_pos, prob)
+        chi2 = _obs_chi2(prob, r_uv, r_xr, has_stereo)
     inlier = obs_live & (chi2 <= delta_sq)
-    total = torch.sum(torch.where(inlier, chi2, zero))
+    total = (linalg.tree_sum if xla else torch.sum)(torch.where(inlier, chi2, zero))
     if lines is not None:
         return BAResult(cam_pose, lm_pos, inlier, total, ln_U, ln_w)
     return BAResult(cam_pose, lm_pos, inlier, total)

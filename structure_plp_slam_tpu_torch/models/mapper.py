@@ -502,14 +502,15 @@ def _write_back_lines(state, result, lw, l_safe):
 def local_ba(camera, state: ms.MapState, current_kf, inv_sigma_sq_table, *,
              max_opt: int = 16, max_fix: int = 16, max_lms: int = 4096,
              with_lines: bool = False, max_lines: int = 128, ind=None,
-             return_cams: bool = False):
+             return_cams: bool = False, _xla_init: bool = False):
     """Local bundle adjustment around ``current_kf``
     (local_bundle_adjuster.cc:73-135): optimized cameras = the top
     ``max_opt`` covisibles, landmarks = those they observe (first
     ``max_lms``), fixed cameras = other observers (first ``max_fix``).
     ``with_lines``: the joint point + line window
     (local_bundle_adjuster_extended_line.cc:69-) over the first
-    ``max_lines`` lines the window observes.
+    ``max_lines`` lines the window observes. ``_xla_init``: the System's
+    two-view init is the caller (``ba_solve``'s XLA:CPU iteration).
     Returns (state, chi2[, window cameras with -1 padding])."""
     K = state.kf_pose.shape[0]
     L = state.lm_pos.shape[0]
@@ -581,7 +582,8 @@ def local_ba(camera, state: ms.MapState, current_kf, inv_sigma_sq_table, *,
     if with_lines:
         lw, l_safe = _line_window(state, cams, cam_ok, inv_sigma_sq_table, max_lines)
     # 8 damped-GN iterations with the outlier cull after 4.
-    result = ba.ba_solve(camera, prob, lw, obs_grid=True, num_iters=8, cull_at_iters=(4,))
+    result = ba.ba_solve(camera, prob, lw, obs_grid=True, num_iters=8, cull_at_iters=(4,),
+                         _xla_init=_xla_init)
 
     write_cam = (~cam_fixed) & cam_ok
     old_pose = state.kf_pose

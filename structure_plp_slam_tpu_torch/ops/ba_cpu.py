@@ -1,0 +1,202 @@
+"""The two-view init's local BA iteration on the CPU, as XLA:CPU computes the
+JAX package's (``csrc/ba_solve_cpu.c``).
+
+XLA:CPU compiles the JAX System's init BA (the jitted ``mapper.local_ba``
+over the two init keyframes: C = 8 window cameras, M = 4096 landmarks, the
+observations a dense [C, Ng] grid) into kernels whose fused multiply-adds and
+summation orders follow each kernel; the C source repeats one Gauss-Newton
+iteration of that compile operation for operation (``python -m
+tests.xla_init_ba`` dumps it and measures the Schur product's blocks).
+``models/bundle_adjustment.ba_solve`` keeps the solver's loop and policy and
+calls, per iteration, :func:`normal_equations`, the camera solve
+(``ops/linalg``: XLA's LAPACK routines) and :func:`update`; its cull and its
+final inlier test take :func:`obs_chi2`.
+
+The source is built with the host C compiler at first use into
+``build/kernels/`` and loaded with ctypes (``utils/host_c``); it builds on
+x86-64 only (XLA:CPU's reciprocal root is the SSE ``rsqrtss`` instruction).
+It serves f32 CPU tensors of monocular observations and pinhole-projecting
+cameras (perspective, fisheye).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import threading
+
+import torch
+
+from structure_plp_slam_tpu_torch.camera import CameraModel
+from structure_plp_slam_tpu_torch.ops import linalg
+from structure_plp_slam_tpu_torch.utils import host_c
+
+_log = logging.getLogger(__name__)
+
+SOURCE = host_c.CSRC / "ba_solve_cpu.c"
+
+# The Schur product's block length over its contraction index K = k M + m,
+# by (6C, 3M): XLA:CPU's dot sums K in consecutive blocks of this length (the
+# last one shorter), each block one chain. Measured with jax / jaxlib 0.9.0 on
+# an x86-64 Xeon with AVX-512 (tests/xla_init_ba.py; tests/test_torch_init_ba_
+# xla.py holds the entry against XLA's dot).
+_SCHUR_BLOCKS = {(48, 12288): 682}
+_UNMEASURED: set = set()
+# Floats per observation in the trace (csrc/ba_solve_cpu.c OBS_TRACE).
+_OBS_TRACE = 97
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def schur_block(D: int, K: int) -> int:
+    """The Schur product's block length for a [D, K] x [K, D] product
+    (``_SCHUR_BLOCKS``; one chain for a shape outside the table, with one
+    warning)."""
+    block = _SCHUR_BLOCKS.get((D, K))
+    if block is None:
+        block = K
+        if (D, K) not in _UNMEASURED:
+            _UNMEASURED.add((D, K))
+            _log.warning(
+                "the BA's Schur product [%d, %d] x [%d, %d] has no measured XLA:CPU "
+                "summation order; summing it in one chain, so the solve may differ from "
+                "the JAX package's in the last place (add the shape to tests/xla_init_ba.py "
+                "and extend _SCHUR_BLOCKS)", D, K, K, D)
+    return block
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = host_c.load(SOURCE)
+            lib.ba_normal_cpu.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [
+                ctypes.c_int] + [ctypes.c_void_p] * 8
+            lib.ba_normal_cpu.restype = ctypes.c_int
+            lib.ba_update_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+            lib.ba_update_cpu.restype = None
+            lib.ba_chi2_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+            lib.ba_chi2_cpu.restype = None
+            lib.ba_schur_cpu.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+            lib.ba_schur_cpu.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _c(x, dtype=torch.float32):
+    return x.detach().to(dtype).contiguous()
+
+
+def serves(camera, prob, lines) -> bool:
+    """Whether the C source computes this solve: f32 CPU tensors, a
+    pinhole-projecting camera (perspective, fisheye) and no line landmarks.
+    ``models/bundle_adjustment.ba_solve`` runs its PyTorch iteration
+    otherwise."""
+    return (prob.cam_pose.device.type == "cpu" and prob.cam_pose.dtype == torch.float32
+            and lines is None and camera.model in (CameraModel.PERSPECTIVE, CameraModel.FISHEYE))
+
+
+def check(prob) -> None:
+    """Raise unless the observations of a problem that :func:`serves` takes
+    are what the init's compile solves: monocular, on a dense [C, Ng] grid
+    (``obs_cam[o] == o // Ng``)."""
+    C, O = prob.cam_pose.shape[0], prob.obs_cam.shape[0]
+    grid = torch.arange(C)[:, None].expand(C, O // C).reshape(-1)
+    if O % C or not torch.equal(prob.obs_cam, grid):
+        raise ValueError("the XLA:CPU BA iteration needs the observations as a [C, O/C] grid")
+    if bool(torch.any(prob.obs_xr >= 0)):
+        raise ValueError("the XLA:CPU BA iteration serves monocular observations only")
+
+
+def _camf(camera, policy):
+    return torch.tensor([camera.fx, camera.fy, camera.cx, camera.cy, *policy],
+                        dtype=torch.float32)
+
+
+def normal_equations(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: tuple,
+                     trace: bool = False):
+    """The iteration's camera system and what its back-substitution needs:
+    ``(S [6C, 6C], rhs [6C], Hll_inv [M, 3, 3], W [M, C, 6, 3], bl [M, 3])``;
+    ``policy`` is ``models/bundle_adjustment._ba_policy``. With ``trace``
+    also a dict of the per-observation values (``pc``, ``r_uv``, ``chi2``,
+    ``w``, ``Jc2``, ``Jl2``, ``Hcc_o``, ``Hll_o``, ``Hcl_o``, ``bc_o``,
+    ``bl_o``), ``Hll``, ``WHinv``, ``Hcc``, ``bc`` and the Schur product
+    ``S_red [6C, 6C]``."""
+    C, M = cam_pose.shape[0], lm_pos.shape[0]
+    O = prob.obs_lm.shape[0]
+    D = 6 * C
+    f32 = torch.float32
+    S = torch.empty((D, D), dtype=f32)
+    rhs = torch.empty((D,), dtype=f32)
+    Hinv = torch.empty((M, 3, 3), dtype=f32)
+    W = torch.empty((M, C, 6, 3), dtype=f32)
+    bl = torch.empty((M, 3), dtype=f32)
+    obs_tr = torch.empty((O, _OBS_TRACE), dtype=f32) if trace else None
+    lm_tr = torch.empty((M * 9 + M * C * 18,), dtype=f32) if trace else None
+    cam_tr = torch.empty((C * 42 + D * D,), dtype=f32) if trace else None
+    ins = [_camf(camera, policy), _c(cam_pose), _c(lm_pos), _c(prob.obs_lm, torch.int64),
+           _c(prob.obs_uv), _c(prob.obs_inv_sigma_sq), _c(obs_live, torch.uint8),
+           _c(free, torch.uint8)]
+    p = host_c.ptr
+    rc = _load().ba_normal_cpu(C, M, O // C, *(p(x) for x in ins), schur_block(D, 3 * M),
+                               p(S), p(rhs), p(Hinv), p(W), p(bl), p(obs_tr), p(lm_tr), p(cam_tr))
+    if rc == 1:
+        raise ValueError("the XLA:CPU BA iteration needs each landmark observed at most once "
+                         "per window camera")
+    if rc != 0:
+        raise RuntimeError(f"ba_normal_cpu returned {rc}")
+    out = (S, rhs, Hinv, W, bl)
+    if not trace:
+        return out
+    cols = dict(pc=(0, 3), r_uv=(3, 5), chi2=(5, 6), w=(6, 7), Jc2=(7, 19), Jl2=(19, 25),
+                Hcc_o=(25, 61), Hll_o=(61, 70), Hcl_o=(70, 88), bc_o=(88, 94), bl_o=(94, 97))
+    shapes = dict(Jc2=(2, 6), Jl2=(2, 3), Hcc_o=(6, 6), Hll_o=(3, 3), Hcl_o=(6, 3))
+    steps = {}
+    for k, (a, b) in cols.items():
+        v = obs_tr[:, a:b]
+        steps[k] = v[:, 0] if b - a == 1 else v.reshape(O, *shapes.get(k, (b - a,)))
+    steps["Hll"] = lm_tr[:M * 9].reshape(M, 3, 3)
+    steps["WHinv"] = lm_tr[M * 9:].reshape(M, C, 6, 3)
+    steps["Hcc"] = cam_tr[:C * 36].reshape(C, 6, 6)
+    steps["bc"] = cam_tr[C * 36:C * 42].reshape(C, 6)
+    steps["S_red"] = cam_tr[C * 42:].reshape(D, D)
+    return out, steps
+
+
+def update(camera, dx_c, Hinv, W, bl, cam_pose, lm_pos, free, lm_valid, *, policy: tuple,
+           trace: bool = False):
+    """The back-substitution and the update: ``(cam_pose [C, 3, 4], lm_pos
+    [M, 3])`` after the step ``dx_c [C * 6]`` (and with ``trace`` the clipped
+    landmark step ``dx_l [M, 3]``)."""
+    C, M = cam_pose.shape[0], lm_pos.shape[0]
+    Pn = torch.empty((C, 3, 4), dtype=torch.float32)
+    Xn = torch.empty((M, 3), dtype=torch.float32)
+    dxl = torch.empty((M, 3), dtype=torch.float32) if trace else None
+    ins = [_camf(camera, policy), _c(dx_c.reshape(-1)), _c(Hinv), _c(W), _c(bl), _c(cam_pose),
+           _c(lm_pos), _c(free, torch.uint8), _c(lm_valid, torch.uint8)]
+    p = host_c.ptr
+    _load().ba_update_cpu(C, M, *(p(x) for x in ins), p(Pn), p(Xn), p(dxl))
+    return (Pn, Xn, dxl) if trace else (Pn, Xn)
+
+
+def iteration(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: tuple):
+    """One Gauss-Newton iteration: :func:`normal_equations`, the camera
+    system's Cholesky solve (``ops/linalg``) and :func:`update`; returns the
+    new ``(cam_pose, lm_pos)``."""
+    S, rhs, Hinv, W, bl = normal_equations(camera, prob, cam_pose, lm_pos, obs_live, free,
+                                           policy=policy)
+    dx_c = linalg.cho_solve(linalg.cho_factor(S), rhs)
+    return update(camera, dx_c, Hinv, W, bl, cam_pose, lm_pos, free, prob.lm_valid,
+                  policy=policy)
+
+
+def obs_chi2(camera, prob, cam_pose, lm_pos, *, policy: tuple):
+    """Every observation's chi2 under ``(cam_pose, lm_pos)``: ``[O]``."""
+    C, O = cam_pose.shape[0], prob.obs_lm.shape[0]
+    chi2 = torch.empty((O,), dtype=torch.float32)
+    ins = [_camf(camera, policy), _c(cam_pose), _c(lm_pos), _c(prob.obs_lm, torch.int64),
+           _c(prob.obs_uv), _c(prob.obs_inv_sigma_sq)]
+    p = host_c.ptr
+    _load().ba_chi2_cpu(C, O // C, *(p(x) for x in ins), p(chi2))
+    return chi2

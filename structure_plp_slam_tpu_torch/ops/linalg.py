@@ -438,6 +438,39 @@ def norm(v):
     return sqrt(acc)
 
 
+def tree_sum(x, dim: int = -1):
+    """``torch.sum(x, dim)``. On the CPU the reduce XLA:CPU emits for
+    ``jnp.sum`` over that axis (its tree-reduction rewrite, as
+    ``csrc/pose_solve_cpu.c`` sums): while more than 32 values are left,
+    windows of 32 with the zero padding split around them (the lower half
+    in front), each window summed in order from 0; then the last values in
+    order from 0. On the card ``torch.sum``."""
+    if x.device.type != "cpu":
+        return torch.sum(x, dim=dim)
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 32:
+        pad = -x.shape[-1] % 32
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(*x.shape[:-1], -1, 32)
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype)
+        for j in range(32):
+            acc = acc + x[..., j]
+        x = acc
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def tree_mean(x, dim: int = -1):
+    """``torch.mean(x, dim)``. On the CPU ``jnp.mean`` as XLA:CPU computes
+    it: :func:`tree_sum` times the count's f32 reciprocal
+    (:func:`div_const`); on the card ``torch.mean``."""
+    if x.device.type != "cpu":
+        return torch.mean(x, dim=dim)
+    return div_const(tree_sum(x, dim=dim), x.shape[dim])
+
+
 def einsum_fma(eq, a, b):
     """``torch.einsum(eq, a, b)`` with one contracted index. On the CPU
     summed as XLA:CPU's dot of these small shapes: each output one fused

@@ -10,8 +10,8 @@ dumps it). A batched call (``points_w [B, N, 3]``) takes the vmapped
 solve's arithmetic, a single one (``[N, 3]``) the stage-2 solve's.
 
 The source is built with the host C compiler at first use into
-``build/kernels/`` and loaded with ctypes; a failed build raises with the
-compiler's output; it builds on x86-64 only (XLA:CPU's reciprocal root is the
+``build/kernels/`` and loaded with ctypes (``utils/host_c``; a failed build
+raises with the compiler's output); it builds on x86-64 only (XLA:CPU's reciprocal root is the
 SSE ``rsqrtss`` instruction, whose last bits other CPUs do not give). It
 serves f32 CPU tensors of pinhole-projecting cameras (perspective, fisheye).
 """
@@ -19,21 +19,16 @@ serves f32 CPU tensors of pinhole-projecting cameras (perspective, fisheye).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
-import os
-import platform
-import subprocess
 import threading
-from pathlib import Path
 
 import torch
 
+from structure_plp_slam_tpu_torch.utils import host_c
+
 _log = logging.getLogger(__name__)
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "pose_solve_cpu.c"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-CFLAGS = ["-O2", "-march=native", "-ffp-contract=off", "-fPIC", "-shared"]
+SOURCE = host_c.CSRC / "pose_solve_cpu.c"
 
 # The blocks of observation rows that XLA:CPU's dot sums apart for the
 # normal matrix's stereo part ``sum J3w^T J3r``, by the number of rows N
@@ -70,42 +65,11 @@ def h3_blocks(n: int, warn: bool = True) -> tuple:
     return blocks
 
 
-def _host() -> bytes:
-    """The CPU's model and feature flags (``-march=native`` builds for them)."""
-    try:
-        with open("/proc/cpuinfo", "rb") as f:
-            lines = [ln for ln in f.read().splitlines()
-                     if ln.startswith((b"model name", b"flags"))]
-        return b"\n".join(lines[:2])
-    except OSError:
-        return platform.processor().encode()
-
-
-def build() -> Path:
-    """Compile ``csrc/pose_solve_cpu.c`` into a shared library named by the
-    hash of the source, the flags and the host CPU (built to a temporary
-    name and renamed, so that concurrent processes do not race)."""
-    src = SOURCE.read_bytes()
-    cc = os.environ.get("CC", "cc")
-    tag = hashlib.sha256(src + " ".join([cc, *CFLAGS]).encode() + _host()).hexdigest()[:16]
-    out = BUILD_DIR / f"libpose_solve_cpu_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    res = subprocess.run([cc, *CFLAGS, "-o", str(tmp), str(SOURCE), "-lm"],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"{cc} failed ({res.returncode}) building {SOURCE}:\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = host_c.load(SOURCE)
             fn = lib.pose_solve_cpu
             fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
                            + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6)
@@ -114,8 +78,7 @@ def _load():
     return _lib
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+_ptr = host_c.ptr
 
 
 def optimize_pose(camera, R0, t0, points_w, obs_uv, obs_xr, inv_sigma_sq, valid, *,

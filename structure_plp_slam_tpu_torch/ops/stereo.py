@@ -4,14 +4,17 @@ Port of structure_plp_slam_tpu/ops/stereo.py (reference match::stereo,
 stereo.cc:45-): the row bucketing is a mask on the dense distance matrix
 and the sub-pixel step a batched 3-point parabola over SAD samples at
 integer offsets around the match. ``depth_at_points`` gives the stereo
-line frontend its endpoint depths.
+line frontend its endpoint depths. On the CPU the SAD sums and their mean
+are XLA:CPU's (``linalg.tree_sum`` / ``tree_mean``), so both functions give
+the JAX package's results bit for bit; on the card they are ``torch.sum`` /
+``torch.mean``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from structure_plp_slam_tpu_torch.ops import matching
+from structure_plp_slam_tpu_torch.ops import linalg, matching
 from structure_plp_slam_tpu_torch.utils.types import HAMMING_MASKED, rdiv
 
 def match_stereo(img_left, img_right, kp_l_xy, kp_l_level, kp_l_bits, kp_l_valid,
@@ -58,11 +61,9 @@ def match_stereo(img_left, img_right, kp_l_xy, kp_l_level, kp_l_bits, kp_l_valid
         return img[yy, xx]
 
     tmpl = gather(img_left, xl, yl)  # [N, P]
-    sad = torch.stack(
-        [torch.sum(torch.abs(tmpl - gather(img_right, xr0 + off, yl)), dim=1)
-         for off in range(-window, window + 1)],
-        dim=1,
-    )  # [N, 2w+1]
+    cand = torch.stack([gather(img_right, xr0 + off, yl)
+                        for off in range(-window, window + 1)], dim=1)  # [N, 2w+1, P]
+    sad = linalg.tree_sum(torch.abs(tmpl[:, None, :] - cand), dim=-1)  # [N, 2w+1]
     k = torch.argmin(sad, dim=1)
     k_c = torch.clamp(k, 1, 2 * window - 1)
     s_m = torch.gather(sad, 1, (k_c - 1)[:, None])[:, 0]
@@ -98,7 +99,7 @@ def depth_at_points(img_left, img_right, pts_xy, *, focal_x_baseline: float,
     disps = torch.arange(1, max_disp + 1, device=dev)                    # [D]
     xxr = torch.clamp(xs[:, None, None] - disps[None, :, None] + dx[None, None, :], 0, W - 1)
     cand = img_right[yy[:, None, :].expand_as(xxr), xxr]                 # [P, D, K]
-    sad = torch.sum(torch.abs(cand - tmpl[:, None, :]), dim=-1)          # [P, D]
+    sad = linalg.tree_sum(torch.abs(cand - tmpl[:, None, :]), dim=-1)    # [P, D]
 
     k = torch.argmin(sad, dim=1)  # first minimum
     k_c = torch.clamp(k, 1, max_disp - 2)
@@ -112,7 +113,7 @@ def depth_at_points(img_left, img_right, pts_xy, *, focal_x_baseline: float,
     disparity = (k_c + 1).to(torch.float32) + delta
     # Gates: disparity in range, the match not clipped at the border, the
     # SAD minimum distinct from the row mean (texture present).
-    mean_sad = torch.mean(sad, dim=1)
+    mean_sad = linalg.tree_mean(sad, dim=1)
     ok = ((disparity > 0.5) & (disparity < float(max_disp)) & (xs - disps[k_c] >= patch)
           & (s_0 < 0.8 * torch.clamp(mean_sad, min=1e-6)))
     depth = torch.where(ok, rdiv(focal_x_baseline, torch.clamp(disparity, min=1e-6)),

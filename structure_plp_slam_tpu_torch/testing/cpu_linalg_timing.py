@@ -24,7 +24,19 @@ runs on the CPU. Prints one JSON object per measurement, the median of
   sequence, 600 keypoints over 4 levels at 320x240 and 1000 over 8 at
   640x480: the median of the frames after the first tracked one, over
   ``--repeats`` + 4 frames (its two pose solves are ``ops/pose_cpu``'s C
-  source on the CPU).
+  source on the CPU);
+* ``init_ba_640x480``: the monocular System's two-view BA after its init
+  (its first ``mapper.local_ba`` call: 8 window cameras, 4096 landmark
+  slots; ``ops/ba_cpu``'s C source on the CPU) at 640x480 with 1000
+  keypoints over 8 levels on numpy seed 42's sequence, a new System per
+  repeat;
+* ``match_stereo_640x480``, ``match_stereo_752x480`` and
+  ``match_stereo_1241x376``: the stereo frontend's ``match_stereo`` on one
+  rendered pair (numpy seed 0) at the 640x480 main path's camera (0.1 m
+  baseline, 1000 keypoints, 1,032 slots) and at EuRoC's and KITTI's image
+  size, focal length and baseline (1000 keypoints and 1,032 slots; 2000
+  and 2,040), 8 levels: its SAD sums are XLA:CPU's tree order on the CPU
+  (``ops/linalg.tree_sum``).
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import torch
 from structure_plp_slam_tpu_torch import system as system_mod
 from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
 from structure_plp_slam_tpu_torch.config import Config
+from structure_plp_slam_tpu_torch.models import frontend as frontend_mod
 from structure_plp_slam_tpu_torch.models import global_ba, initializer
 from structure_plp_slam_tpu_torch.models.frontend import Frontend
 from structure_plp_slam_tpu_torch.ops.orb import OrbParams
@@ -128,6 +141,93 @@ def track_frame_640(repeats: int) -> dict:
     return _track_frame(repeats, 640, 480, 525.0, 1000, 8)
 
 
+def init_ba_640(repeats: int) -> dict:
+    cam = Camera(name="b", setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE,
+                 cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5, fps=30.0)
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12, step=0.08)
+    local_ba = system_mod.mapper.local_ba
+    times = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = local_ba(*a, **k)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    per_run = []
+    system_mod.mapper.local_ba = timed
+    try:
+        for _ in range(repeats + 1):
+            times.clear()
+            slam = system_mod.System(
+                Config(camera=cam, orb=OrbParams(max_num_keypts=1000, num_levels=8), raw={}),
+                device="cpu", enable_loop_closing=False, max_keyframes=32, max_landmarks=8192)
+            slam.startup()
+            for img, _, ts in frames:
+                slam.feed_monocular_frame(img, ts)
+                if times:
+                    break
+            slam.shutdown()
+            per_run.append(times[0])
+    finally:
+        system_mod.mapper.local_ba = local_ba
+    return dict(name="init_ba_640x480", seconds=statistics.median(per_run[1:]))
+
+
+# (name, cols, rows, fx, focal_x_baseline, keypoints, slots): the main
+# path's stereo camera and the EuRoC and KITTI stereo YAMLs' sizes, focal
+# lengths and baselines (chip_smoke.py DATASET_CAMERAS).
+STEREO_CAMERAS = (("640x480", 640, 480, 525.0, 52.5, 1000, 1032),
+                  ("752x480", 752, 480, 435.2046959714599, 47.90639384423901, 1000, 1032),
+                  ("1241x376", 1241, 376, 718.856, 386.1448, 2000, 2040))
+
+
+def _match_stereo(repeats: int, name, cols, rows, f, fxb, keypoints, slots) -> dict:
+    cam = Camera(name=name, setup=CameraSetup.STEREO, model=CameraModel.PERSPECTIVE, cols=cols,
+                 rows=rows, fx=f, fy=f, cx=(cols - 1) / 2, cy=(rows - 1) / 2, fps=30.0,
+                 focal_x_baseline=fxb, depth_threshold=40.0)
+    tex = synthetic_scene.make_texture(np.random.default_rng(0))
+    R, t = synthetic_scene.trajectory(1)[0]
+    left, _ = synthetic_scene.render(cam, tex, R, t, plane_half=8.0)
+    right, _ = synthetic_scene.render(cam, tex, R, t - np.array([fxb / f, 0.0, 0.0]),
+                                      plane_half=8.0)
+    fe = Frontend(cam, OrbParams(max_num_keypts=keypoints, num_levels=8), pad_to=slots,
+                  device="cpu")
+    match = frontend_mod.stereo_ops.match_stereo
+    calls = []
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return match(*a, **k)
+
+    frontend_mod.stereo_ops.match_stereo = record
+    try:
+        fe.stereo(left, right)
+    finally:
+        frontend_mod.stereo_ops.match_stereo = match
+    (a, k), = calls
+    out = {}
+
+    def run():
+        out["ok"] = match(*a, **k)[2]
+
+    seconds = _median_seconds(run, repeats)
+    return dict(name=f"match_stereo_{name}", slots=slots, matched=int(out["ok"].sum()),
+                seconds=seconds)
+
+
+def match_stereo_640(repeats: int) -> dict:
+    return _match_stereo(repeats, *STEREO_CAMERAS[0])
+
+
+def match_stereo_752(repeats: int) -> dict:
+    return _match_stereo(repeats, *STEREO_CAMERAS[1])
+
+
+def match_stereo_1241(repeats: int) -> dict:
+    return _match_stereo(repeats, *STEREO_CAMERAS[2])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repeats", type=int, default=3)
@@ -135,7 +235,8 @@ def main(argv=None):
     ap.add_argument("--only", nargs="*", help="measurements to run (default: all)")
     args = ap.parse_args(argv)
     torch.set_num_threads(args.threads)
-    for measure in (global_ba_iter, mono_init, track_frame_320, track_frame_640):
+    for measure in (global_ba_iter, mono_init, track_frame_320, track_frame_640, init_ba_640,
+                    match_stereo_640, match_stereo_752, match_stereo_1241):
         if args.only and measure.__name__ not in args.only:
             continue
         print(json.dumps(dict(measure(args.repeats), threads=args.threads)), flush=True)

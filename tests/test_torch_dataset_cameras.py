@@ -10,9 +10,12 @@ at EuRoC, 2000 at KITTI, 8 levels at 1.2).
 - The extractor on one rendered frame (numpy seed 42): slots, levels,
   angles and descriptors equal to the JAX package's.
 - ``match_stereo`` on one pair at each camera (KITTI's 0.537 m baseline
-  allows disparities up to 386 px) with the JAX extractor's keypoints in
-  both packages: ``ok`` masks equal, ``xr`` within 1e-3 px, depth within
-  1e-4 relative (the SAD's f32 sums, ROADMAP C29).
+  allows disparities up to 386 px) and on a 640x480 pair (1000 keypoints,
+  1,032 slots), with the JAX extractor's keypoints in both packages:
+  ``xr``, depth and ``ok`` equal (the SAD sums in XLA:CPU's tree order,
+  ``ops/linalg.tree_sum``); the card's ops (``torch.sum``) on the same
+  CPU tensors: ``ok`` equal, ``xr`` within 1e-3 px, depth within 1e-4
+  relative (ROADMAP C29).
 - A shape outside the table takes the default order and says so once.
 - The slow case drives both Systems over 6 stereo pairs at each camera:
   per-frame poses within 1e-3 m / 1e-3 rad.
@@ -38,6 +41,7 @@ from structure_plp_slam_tpu.system import System as JSystem
 from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
 from structure_plp_slam_tpu_torch.config import Config
 from structure_plp_slam_tpu_torch.ops import image as timg
+from structure_plp_slam_tpu_torch.ops import linalg as tlinalg
 from structure_plp_slam_tpu_torch.ops import matching as tmatching
 from structure_plp_slam_tpu_torch.ops import orb as torb
 from structure_plp_slam_tpu_torch.ops import stereo as tstereo
@@ -55,17 +59,22 @@ CAMERAS = {
                    cy=185.2157, fps=10.0, focal_x_baseline=386.1448, depth_threshold=40.0),
               2000),
 }
+# The 640x480 main path's stereo camera (chip_smoke.py phase 8: 0.1 m
+# baseline), for match_stereo only.
+STEREO_CAMERAS = {**CAMERAS, "vga": (dict(name="vga", cols=640, rows=480, fx=525.0, fy=525.0,
+                                          cx=319.5, cy=239.5, fps=30.0, focal_x_baseline=52.5,
+                                          depth_threshold=40.0), 1000)}
 PLANE_HALF = 8.0  # chip_smoke.py DATASET_PLANE_HALF: the plane fills the wider views
 
 
 def _cams(name):
-    kw, _ = CAMERAS[name]
+    kw, _ = STEREO_CAMERAS[name]
     return (JCamera(setup=JSetup.STEREO, model=JModel.PERSPECTIVE, **kw),
             Camera(setup=CameraSetup.STEREO, model=CameraModel.PERSPECTIVE, **kw))
 
 
 def _orb(name, mod):
-    return mod.OrbParams(max_num_keypts=CAMERAS[name][1], num_levels=8)
+    return mod.OrbParams(max_num_keypts=STEREO_CAMERAS[name][1], num_levels=8)
 
 
 def _resize_cases():
@@ -139,8 +148,10 @@ def _T(a):
     return torch.from_numpy(a)
 
 
-@pytest.mark.parametrize("name", list(CAMERAS))
-def test_match_stereo(name):
+@functools.lru_cache(maxsize=None)
+def _stereo_case(name):
+    """(JAX outputs, port inputs) of ``match_stereo`` on the camera's
+    first pair, both packages given the JAX extractor's keypoints."""
     jcam, tcam = _cams(name)
     left, right, _ = _pairs(name, 1)[0][0]
     ext = jorb.OrbExtractor(jcam.rows, jcam.cols, _orb(name, jorb))
@@ -154,17 +165,37 @@ def test_match_stereo(name):
     t = {k: _T(v) for k, v in (("lxy", fl["xy"]), ("llv", fl["level"]), ("ld", fl["desc"]),
                                 ("lv", fl["valid"]), ("rxy", fr["xy"]), ("rlv", fr["level"]),
                                 ("rd", fr["desc"]), ("rv", fr["valid"]))}
-    xt, dt, okt = (a.numpy() for a in tstereo.match_stereo(
-        torch.from_numpy(left), torch.from_numpy(right), t["lxy"], t["llv"],
-        tmatching.unpack_desc_bits(t["ld"]), t["lv"], t["rxy"], t["rlv"],
-        tmatching.unpack_desc_bits(t["rd"]), t["rv"], _T(sf),
-        focal_x_baseline=tcam.focal_x_baseline))
-    assert (okt == okj).all()
-    assert okj.sum() > 0.3 * CAMERAS[name][1]
+    args = (torch.from_numpy(left), torch.from_numpy(right), t["lxy"], t["llv"],
+            tmatching.unpack_desc_bits(t["ld"]), t["lv"], t["rxy"], t["rlv"],
+            tmatching.unpack_desc_bits(t["rd"]), t["rv"], _T(sf))
+    return (xj, dj, okj), args, np.asarray(fl["xy"]), tcam.focal_x_baseline
+
+
+@pytest.mark.parametrize("name", list(STEREO_CAMERAS))
+def test_match_stereo(name):
+    """On the CPU the port's ``x_right``, depth and ``ok`` are the JAX
+    package's bit for bit."""
+    (xj, dj, okj), args, lxy, fb = _stereo_case(name)
+    xt, dt, okt = (a.numpy() for a in tstereo.match_stereo(*args, focal_x_baseline=fb))
+    np.testing.assert_array_equal(okt, okj)
+    np.testing.assert_array_equal(xt, xj)
+    np.testing.assert_array_equal(dt, dj)
+    assert okj.sum() > 0.3 * STEREO_CAMERAS[name][1]
     # The background plane at 6 m alone gives focal_x_baseline / 6: at
     # KITTI 64 px, against 52.5 px at most for 640x480's 0.1 m.
-    disp = np.asarray(fl["xy"])[okj, 0] - xj[okj]
-    assert disp.max() > jcam.focal_x_baseline / 8
+    disp = lxy[okj, 0] - xj[okj]
+    assert disp.max() > fb / 8
+
+
+@pytest.mark.parametrize("name", list(STEREO_CAMERAS))
+def test_match_stereo_card_ops(name, monkeypatch):
+    """The card's SAD sums (``torch.sum``, what ``linalg.tree_sum`` runs
+    on a CUDA tensor) on the same CPU tensors: ``ok`` equal, ``xr`` within
+    1e-3 px, depth within 1e-4 relative of the JAX package's."""
+    (xj, dj, okj), args, _, fb = _stereo_case(name)
+    monkeypatch.setattr(tlinalg, "tree_sum", lambda x, dim=-1: torch.sum(x, dim=dim))
+    xt, dt, okt = (a.numpy() for a in tstereo.match_stereo(*args, focal_x_baseline=fb))
+    np.testing.assert_array_equal(okt, okj)
     assert np.abs(xt - xj).max() < 1e-3
     assert (np.abs(dt - dj)[okj] / dj[okj]).max() < 1e-4
 

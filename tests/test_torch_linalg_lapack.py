@@ -11,8 +11,9 @@ the 12x12 PnP rows, the 9x9 weighted refit, the 4x4 triangulation
 systems, the BA's, global BA's and pose graph's dense camera systems
 (n = 24, 192, 384), the global BA's landmark blocks, the line BA's 4x4
 and the line tracker's 6x6 solves. The fused multiply-add helpers
-(``fma``, ``einsum_fma``, ``norm``, ``inv3x3``) are held against the
-jitted JAX expressions they model, on random inputs of those shapes.
+(``fma``, ``einsum_fma``, ``norm``, ``inv3x3``) and ``tree_sum`` (XLA's
+windows of 32 for ``jnp.sum``) are held against the jitted JAX
+expressions they model, on random inputs of those shapes.
 """
 
 import numpy as np
@@ -152,3 +153,15 @@ def test_norm(width):
 def test_inv3x3_fused():
     h = _rand(16, (256, 3, 3))
     _equal(jax.jit(jlinalg.inv3x3)(h), linalg.inv3x3(torch.from_numpy(h)))
+
+
+@pytest.mark.parametrize("shape,dim", [((7, 31), -1), ((50, 33), -1), ((1032, 121), -1),
+                                       ((300, 96, 49), -1), ((300, 96), 1), ((40, 1100), -1),
+                                       ((8, 616, 6), 1)])
+def test_tree_sum(shape, dim):
+    """``jnp.sum`` over one axis as XLA:CPU compiles it (windows of 32, the
+    padding split around them, recursively past 32 windows): the stereo
+    SAD sums (121 and 49 samples, 96 disparities), the init BA's grid sums
+    (616 rows) and shapes on either side of one and two rounds."""
+    x = np.abs(_rand(17, shape)) * 255.0
+    _equal(jax.jit(lambda a: jnp.sum(a, axis=dim))(x), linalg.tree_sum(torch.from_numpy(x), dim))

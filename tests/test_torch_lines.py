@@ -12,9 +12,8 @@ JAX System built with lines over 5 RGB-D frames, carried across with
   The coarse pass runs on ``resize_bilinear``'s half-resolution image,
   summed in XLA:CPU's order for its shape (ROADMAP C8); the multiscale
   case checks it with the same tolerances;
-* band descriptors within 1e-4; ``depth_at_points``' ok mask exact and
-  its depths within 1e-6 relative (the 7x7 SAD sums add in another f32
-  order than XLA's);
+* band descriptors within 1e-4; ``depth_at_points``' ok mask and depths
+  exact (the 7x7 SAD sums and their mean in XLA:CPU's order);
 * each line-mapper function and the ``LineWindow`` BA within 1e-4 on
   poses, within 1e-4 absolute plus 1e-4 relative on Plücker coordinates
   and endpoints (lines 6 m away carry moments of 6), indices, masks and
@@ -50,6 +49,7 @@ from structure_plp_slam_tpu_torch.models import line_ba as tline_ba
 from structure_plp_slam_tpu_torch.models import line_mapper as tlm
 from structure_plp_slam_tpu_torch.models import mapper as tmapper
 from structure_plp_slam_tpu_torch.ops import line_geometry as tlg
+from structure_plp_slam_tpu_torch.ops import linalg as tlinalg
 from structure_plp_slam_tpu_torch.ops import lines as tlines
 from structure_plp_slam_tpu_torch.ops import stereo as tstereo
 from structure_plp_slam_tpu_torch.ops.orb import OrbParams
@@ -222,6 +222,24 @@ def test_depth_at_points():
     img, _, right = _frames()[0]
     rng = np.random.default_rng(1)
     pts = rng.uniform([0, 0], [319, 239], (500, 2)).astype(np.float32)
+    jd, jok = jstereo.depth_at_points(J(img), J(right), J(pts), focal_x_baseline=26.0)
+    td, tok = tstereo.depth_at_points(T(img), T(right), T(pts), focal_x_baseline=26.0)
+    jok = np.asarray(jok)
+    np.testing.assert_array_equal(tok.numpy(), jok)
+    assert jok.sum() > 100
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+def test_depth_at_points_card_ops(monkeypatch):
+    """The card's SAD sums and mean (``torch.sum`` / ``torch.mean``, what
+    ``linalg.tree_sum`` / ``tree_mean`` run on a CUDA tensor) on the same
+    CPU tensors: ``ok`` equal, depths within 1e-6 relative of the JAX
+    package's."""
+    img, _, right = _frames()[0]
+    rng = np.random.default_rng(1)
+    pts = rng.uniform([0, 0], [319, 239], (500, 2)).astype(np.float32)
+    monkeypatch.setattr(tlinalg, "tree_sum", lambda x, dim=-1: torch.sum(x, dim=dim))
+    monkeypatch.setattr(tlinalg, "tree_mean", lambda x, dim=-1: torch.mean(x, dim=dim))
     jd, jok = jstereo.depth_at_points(J(img), J(right), J(pts), focal_x_baseline=26.0)
     td, tok = tstereo.depth_at_points(T(img), T(right), T(pts), focal_x_baseline=26.0)
     jok = np.asarray(jok)

@@ -11,7 +11,8 @@ XLA:CPU calls and torch's thread count does not reach
 Here the init and BA paths run at 1, 2 and 3 torch threads at the full
 width of chip_smoke.py's monocular path (640x480, 1000 keypoints over 8
 levels, 1,032 slots) and their outputs must be bit-identical: the
-two-view init on the port frontend's features, local BA, the
+two-view init on the port frontend's features, local BA (the init's
+with both iterations: the PyTorch one and the C source's), the
 neighbours' triangulation and the motion-only pose solve on the map the
 port System builds from the first two frames; and the loop path's dense
 solves, the global BA's reduced camera system (64 keyframes, 384 rows)
@@ -121,6 +122,15 @@ def test_init_ba_same_at_threads():
     slam, state, _ = _init_map()
     _same_at_threads(lambda: mapper.local_ba(CAM, state, 1, slam.frontend.inv_sigma_sq,
                                              max_opt=4, max_fix=4, max_lms=4096))
+
+
+def test_init_ba_xla_cpu_same_at_threads():
+    """The same BA as the System's init calls it (``_xla_init``: the C
+    source's XLA:CPU iteration, ``ops/ba_cpu``)."""
+    slam, state, _ = _init_map()
+    _same_at_threads(lambda: mapper.local_ba(CAM, state, 1, slam.frontend.inv_sigma_sq,
+                                             max_opt=4, max_fix=4, max_lms=4096,
+                                             _xla_init=True))
 
 
 def test_triangulate_with_neighbors_same_at_threads():
