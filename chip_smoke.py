@@ -39,7 +39,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    at the main path's width (mono: 40 frames): TRACKING, >= 30 frames in
    the trajectory, Sim3-aligned ATE < 0.2 m (MONO_FULL_WIDTH_ATE; the JAX
    System's CPU ATE of that sequence, JAX_CPU_MONO_ATE, printed beside
-   the card's, ROADMAP C45); the seed-0 and seed-1 sequences (12
+   the card's, ROADMAP C45); the seed-0 and seed-1 sequences (8
    frames each) reported (the JAX System's CPU runs are
    tests/test_torch_mono.py's slow tests'); driven with fixed summation
    orders (deterministic()), so that a run gives one result;
@@ -95,11 +95,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    planes, ATE < 0.06 m, > 200 landmarks), with the matcher checks of
    phases 4 and 7-11;
 13. whether torch.linalg.svd / eigh / det on the card make the host wait;
-14. fisheye RGB-D (fisheye_path): a Kannala-Brandt 640x480 camera, 40
+14. fisheye RGB-D (fisheye_path): a Kannala-Brandt 640x480 camera, 24
    frames of the port's fisheye renderer (TRACKING, ATE < 0.06 m), with
    the matcher checks of phases 4 and 7-12; then profiled like phase 6;
 15. equirectangular monocular (equirect_path): OpenVSLAM's aist
-   configuration (1920x960, 2000 keypoints, its mask rectangles), 24
+   configuration (1920x960, 2000 keypoints, its mask rectangles), 16
    frames of the port's cube room (initialized, TRACKING, Sim3 ATE <
    0.10 m). Its matches take the masked matchers with the u window
    wrapped, as the JAX package routes the sphere: 0 kernel launches by
@@ -169,7 +169,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    (ops/ba_cpu's C source, XLA:CPU's arithmetic): poses within 1e-4,
    points within 1e-3 m; match_stereo at phase 8 (b)'s two cameras, card
    against CPU: masks equal, x_right within 1e-3 px, depth within 1e-4
-   relative;
+   relative; (f) chain_ba_checks: the monocular keyframe chain's local
+   BA (640x480, seed 42, the first chain after the init, 32 window
+   cameras) on the card (the PyTorch iteration) against the CPU's C
+   source: poses within 1e-4, points within 1e-3 m;
 20. one JSON line with each path's numbers, one with the rectifier's, one
    with phase 19's, one with every kernel's numbers (launches per path
    added), the card line, and the result line ``{"ok": true, "device":
@@ -213,12 +216,13 @@ CALL_SITES = {
 REPLACES = "structure_plp_slam_tpu/ops/pallas_matching.py:42"
 SOURCE = "structure_plp_slam_tpu_torch/csrc/fused_match.cu"
 NUM_FRAMES = 40
-REPORTED_MONO_FRAMES = 12  # phase 7's reported seeds (0 and 1)
+REPORTED_MONO_FRAMES = 8  # phase 7's reported seeds (0 and 1)
+FISHEYE_FRAMES = 24  # phase 14
 # Phase 7's bound on the full-width monocular run's Sim3 ATE (m): on the CPU
-# the JAX System ends at 0.115389 and the port at 0.115470 (at any torch
-# thread count, with the same keyframes; the seeds 0 and 1 runs still part,
-# ROADMAP C18, C45); 0.2 holds a run that tracks as the reference does and
-# fails one that drifts.
+# the JAX System and the port both end at 0.115389 (at any torch thread
+# count, with the same keyframes; ROADMAP C18, C45), on the card the port's
+# float order is its own; 0.2 holds a run that tracks as the reference does
+# and fails one that drifts.
 MONO_FULL_WIDTH_ATE = 0.2
 # The JAX System's Sim3 ATE (m) of phase 7's full-width sequence on the
 # CPU, as PERF.md records it from tests/test_torch_mono.py's slow run
@@ -1763,68 +1767,101 @@ def linalg_checks(device="cuda"):
     return res
 
 
-def init_ba_checks(device="cuda"):
-    """Phase 19 (e): the two CPU routes this repository computes as XLA:CPU
-    does, each on the card against the CPU. (1) The monocular System's
-    two-view BA after its init (640x480, 1000 keypoints over 8 levels,
-    numpy seed 42, the capacities of phase 7's full-width System): its
-    first ``mapper.local_ba`` call's input, recorded on a CPU System, through
-    ``local_ba(..., _xla_init=True)`` on the card (the PyTorch iteration)
-    and on the CPU (``ops/ba_cpu``'s C source): poses within 1e-4, points
-    within 1e-3 m (the mapper tests' bounds), the detached observations
-    equal on >= 99% of slots. (2) ``match_stereo`` on phase 8 (b)'s first
-    pair at each dataset camera, with the CPU extractor's features on both:
-    masks equal, x_right within 1e-3 px, depth within 1e-4 relative (the SAD
-    sums: XLA:CPU's tree order on the CPU, ``torch.sum`` on the card).
-    Returns each check's largest difference."""
+@functools.lru_cache(maxsize=1)
+def _mono_ba_calls():
+    """The monocular System's init BA and first keyframe chain BA on the CPU
+    (640x480, 1000 keypoints over 8 levels, numpy seed 42, phase 7's
+    capacities): ``{"init": ..., "chain": ...}``, each the ``mapper.local_ba``
+    call's (camera, state, slot, inverse sigmas) and keywords, copied when
+    the call was made."""
     from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
     from structure_plp_slam_tpu_torch.config import Config
     from structure_plp_slam_tpu_torch.data import map_state
     from structure_plp_slam_tpu_torch.models import mapper
-    from structure_plp_slam_tpu_torch.ops import matching, stereo
-    from structure_plp_slam_tpu_torch.ops.orb import OrbExtractor, OrbParams
+    from structure_plp_slam_tpu_torch.ops.orb import OrbParams
     from structure_plp_slam_tpu_torch.system import System
     from structure_plp_slam_tpu_torch.testing import synthetic_scene
 
-    res = {}
     cam = Camera(name="b", setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE,
                  cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5, fps=30.0)
     frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12, step=0.08)
-    calls = []
+    calls = {}
     local_ba = mapper.local_ba
 
-    def record(*a, **k):
-        calls.append((a, k))
-        return local_ba(*a, **k)
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def record(camera, state, slot, isg, **k):
+        if k.get("_xla") in ("init", "chain") and k["_xla"] not in calls:
+            st = map_state.from_numpy(map_state.to_numpy(state), "cpu")
+            calls[k["_xla"]] = ((camera, st, slot, isg.clone()),
+                                {n: clone(v) for n, v in k.items()})
+        return local_ba(camera, state, slot, isg, **k)
 
     slam = System(Config(camera=cam, orb=OrbParams(max_num_keypts=1000, num_levels=8), raw={}),
                   device="cpu", enable_loop_closing=False, max_keyframes=32,
-                  max_landmarks=8192)
+                  max_landmarks=8192, max_kf_interval=3)
     mapper.local_ba = record
     try:
         slam.startup()
         for img, _, ts in frames:
             slam.feed_monocular_frame(img, ts)
-            if calls:
+            if len(calls) == 2:
                 break
         slam.shutdown()
     finally:
         mapper.local_ba = local_ba
-    if not calls or not calls[0][1].get("_xla_init"):
-        raise AssertionError("phase 19 (e): the monocular System ran no init BA")
-    (camera, state, slot, isg), kw = calls[0]
-    host = map_state.to_numpy(local_ba(camera, state, slot, isg, **kw)[0])
+    return calls
+
+
+def _ba_card_vs_cpu(name, call, device):
+    """One recorded ``local_ba`` call on the CPU (its C route) and on
+    ``device`` (the PyTorch iteration there): the largest pose and point
+    differences, the share of equal associations and how far the CPU solve
+    moved the poses; gated at 1e-4 / 1e-3 m / 99%."""
+    from structure_plp_slam_tpu_torch.data import map_state
+    from structure_plp_slam_tpu_torch.models import mapper
+
+    (camera, state, slot, isg), kw = call
+    host = map_state.to_numpy(mapper.local_ba(camera, state, slot, isg, **kw)[0])
+    card_kw = {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()}
     card_state = map_state.from_numpy(map_state.to_numpy(state), device)
-    card = map_state.to_numpy(local_ba(camera, card_state, slot, isg.to(device), **kw)[0])
-    moved = float(np.abs(host["kf_pose"][1] - map_state.to_numpy(state)["kf_pose"][1]).max())
-    res["init_ba"] = {"pose_abs": float(np.abs(card["kf_pose"] - host["kf_pose"]).max()),
-                      "points_abs": float(np.abs(card["lm_pos"] - host["lm_pos"]).max()),
-                      "obs_equal_share": float((card["kf_lm_idx"] == host["kf_lm_idx"]).mean()),
-                      "pose_moved": moved}
-    print(f"init BA (640x480, seed 42): card against the CPU's XLA:CPU iteration: "
-          f"{res['init_ba']}")
-    gate("init_ba", res["init_ba"]["pose_abs"] < 1e-4 and res["init_ba"]["points_abs"] < 1e-3
-         and res["init_ba"]["obs_equal_share"] >= 0.99 and moved > 0, f"{res['init_ba']}")
+    card = map_state.to_numpy(
+        mapper.local_ba(camera, card_state, slot, isg.to(device), **card_kw)[0])
+    moved = float(np.abs(host["kf_pose"] - map_state.to_numpy(state)["kf_pose"]).max())
+    res = {"pose_abs": float(np.abs(card["kf_pose"] - host["kf_pose"]).max()),
+           "points_abs": float(np.abs(card["lm_pos"] - host["lm_pos"]).max()),
+           "obs_equal_share": float((card["kf_lm_idx"] == host["kf_lm_idx"]).mean()),
+           "pose_moved": moved, "slot": int(slot)}
+    print(f"{name} (640x480, seed 42, keyframe {slot}): card against the CPU's XLA:CPU "
+          f"iteration: {res}")
+    gate(name, res["pose_abs"] < 1e-4 and res["points_abs"] < 1e-3
+         and res["obs_equal_share"] >= 0.99 and moved > 0, f"{res}")
+    return res
+
+
+def init_ba_checks(device="cuda"):
+    """Phase 19 (e): the two CPU routes this repository computes as XLA:CPU
+    does, each on the card against the CPU. (1) The monocular System's
+    two-view BA after its init (640x480, 1000 keypoints over 8 levels,
+    numpy seed 42, the capacities of phase 7's full-width System): its
+    first ``mapper.local_ba`` call's input, recorded on a CPU System
+    (``_mono_ba_calls``), through ``local_ba(..., _xla="init")`` on the card
+    (the PyTorch iteration) and on the CPU (``ops/ba_cpu``'s C source):
+    poses within 1e-4, points within 1e-3 m (the mapper tests' bounds), the
+    detached observations equal on >= 99% of slots. (2) ``match_stereo`` on phase 8 (b)'s first
+    pair at each dataset camera, with the CPU extractor's features on both:
+    masks equal, x_right within 1e-3 px, depth within 1e-4 relative (the SAD
+    sums: XLA:CPU's tree order on the CPU, ``torch.sum`` on the card).
+    Returns each check's largest difference."""
+    from structure_plp_slam_tpu_torch.ops import matching, stereo
+    from structure_plp_slam_tpu_torch.ops.orb import OrbExtractor, OrbParams
+
+    res = {}
+    calls = _mono_ba_calls()
+    if "init" not in calls:
+        raise AssertionError("phase 19 (e): the monocular System ran no init BA")
+    res["init_ba"] = _ba_card_vs_cpu("init_ba", calls["init"], device)
 
     for name in DATASET_CAMERAS:
         scam = dataset_config(name).camera
@@ -1848,6 +1885,21 @@ def init_ba_checks(device="cuda"):
         gate("init_ba", torch.equal(okh, okc) and r["matched"] > 300 and r["x_right_abs"] < 1e-3
              and r["depth_rel"] < 1e-4, f"match_stereo {name}: {r}")
     return res
+
+
+def chain_ba_checks(device="cuda"):
+    """Phase 19 (f): the monocular keyframe chain's local BA on the card
+    against the CPU. The CPU System of phase 19 (e) (``_mono_ba_calls``)
+    runs on to its first keyframe chain after the init; that chain's
+    ``mapper.local_ba`` call (``_xla="chain"``, C = 32 window cameras) runs
+    again on the card (the PyTorch iteration) and on the CPU
+    (``ops/ba_cpu``'s C source, XLA:CPU's arithmetic): poses within 1e-4,
+    points within 1e-3 m, the detached observations equal on >= 99% of
+    slots. Returns the largest differences."""
+    calls = _mono_ba_calls()
+    if "chain" not in calls:
+        raise AssertionError("phase 19 (f): the monocular System ran no keyframe chain BA")
+    return _ba_card_vs_cpu("chain_ba", calls["chain"], device)
 
 
 def knob_checks(cam, slam, frames, device="cuda"):
@@ -2159,11 +2211,11 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
 def fisheye_path(fm, cfg, capacities=(256, 32768)):
     """Phase 14: RGB-D through a Kannala-Brandt fisheye at full width:
     tests/test_fisheye_system.py's camera scaled x2 (640x480, fx = fy =
-    480, k1..k4 = -0.05, 0.01, -0.003, 0.001), NUM_FRAMES frames of the
+    480, k1..k4 = -0.05, 0.01, -0.003, 0.001), FISHEYE_FRAMES frames of the
     port's fisheye renderer at 0.05 m a frame (numpy seed 0), the default
     keyframe interval (ROADMAP C15), loop closing on (the default). Gates:
     TRACKING, ATE < 0.06 m (that test's bound), and drive_path's: every
-    matcher call launched the kernel, equal to its plain twin. Then 3
+    matcher call launched the kernel, equal to its plain twin. Then 2
     frames under torch.profiler (each traced frame costs ~15 s of event
     parsing on the host)."""
     import dataclasses
@@ -2179,7 +2231,7 @@ def fisheye_path(fm, cfg, capacities=(256, 32768)):
                  k2=0.01, k3=-0.003, k4=0.001, focal_x_baseline=48.0, depth_threshold=400.0)
     config = dataclasses.replace(cfg, camera=cam)
     tex = synthetic_scene.make_texture(np.random.default_rng(0))
-    poses = synthetic_scene.trajectory(NUM_FRAMES, step=0.05)
+    poses = synthetic_scene.trajectory(FISHEYE_FRAMES, step=0.05)
     frames = [(*synthetic_scene.render_fisheye(cam, tex, R, t), float(i) / 30.0)
               for i, (R, t) in enumerate(poses)]
 
@@ -2197,9 +2249,10 @@ def fisheye_path(fm, cfg, capacities=(256, 32768)):
     print(f"path fisheye: ATE {ate:.6f} m; peak torch.cuda.max_memory_allocated "
           f"{peak_mib:.1f} MiB")
     gate("fisheye", r["state"] == TrackerState.TRACKING.value, f"ended in state {r['state']}")
-    gate("fisheye", r["tracked"] >= NUM_FRAMES - 1, f"tracked {r['tracked']} of {NUM_FRAMES}")
+    gate("fisheye", r["tracked"] >= FISHEYE_FRAMES - 1,
+         f"tracked {r['tracked']} of {FISHEYE_FRAMES}")
     gate("fisheye", ate < 0.06, f"ATE {ate} >= 0.06 m")
-    r["profile"] = profile_frames(make_system, frames, warm=4, count=3, label="profile fisheye")
+    r["profile"] = profile_frames(make_system, frames, warm=4, count=2, label="profile fisheye")
     return r
 
 
@@ -2207,7 +2260,7 @@ def fisheye_path(fm, cfg, capacities=(256, 32768)):
 # Feature.mask_rectangles, normalized (x_min, x_max, y_min, y_max).
 EQUIRECT_MASK = ((0.0, 1.0, 0.0, 0.1), (0.0, 1.0, 0.84, 1.0), (0.0, 0.2, 0.7, 1.0),
                  (0.8, 1.0, 0.7, 1.0))
-EQUIRECT_FRAMES = 24
+EQUIRECT_FRAMES = 16
 
 
 def equirect_path(fm, capacities=(256, 32768)):
@@ -2221,7 +2274,7 @@ def equirect_path(fm, capacities=(256, 32768)):
     matchers with the u window wrapped, not the kernel (the JAX package's
     routing), so the kernel's launches must be 0 and every masked matcher
     call equal to its CPU run (PlainRecorder). Gates: the map initialized,
-    TRACKING, Sim3 ATE < 0.10 m (that test's bound). Then 2 frames under
+    TRACKING, Sim3 ATE < 0.10 m (that test's bound). Then 1 frame under
     torch.profiler."""
     from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
     from structure_plp_slam_tpu_torch.config import Config
@@ -2267,7 +2320,7 @@ def equirect_path(fm, capacities=(256, 32768)):
     gate("equirect", slam.next_kf >= 2 and est, "the map never initialized")
     gate("equirect", r["state"] == TrackerState.TRACKING.value, f"ended in state {r['state']}")
     gate("equirect", ate < 0.10, f"Sim3 ATE {ate} >= 0.10 m")
-    r["profile"] = profile_frames(make_system, frames, warm=3, count=2, feed=feed,
+    r["profile"] = profile_frames(make_system, frames, warm=3, count=1, feed=feed,
                                   label="profile equirect")
     return r
 
@@ -2980,6 +3033,7 @@ def main():
     ops["dataset_frontends"] = dataset_frontends()
     ops["linalg"] = linalg_checks()
     ops["xla_cpu_routes"] = init_ba_checks()
+    ops["chain_ba"] = chain_ba_checks()
     phase_done("19")
     for k in kernels:
         site = k["name"].split("@")[1]

@@ -344,7 +344,7 @@ int pose_solve_cpu(int single, int B, int N, const float* camf, const float* R0,
         solve6(H, lam, c.diag_floor, g, xi);
         int ok = 1;
         for (int i = 0; i < 6; i++) ok &= isfinite(xi[i]) != 0;
-        se3_step(c.max_rot, c.max_trans, xi, ok, R, t, Rn, tn, xi_c);
+        se3_step(c.max_rot, c.max_trans, xi, ok, R, t, Rn, tn, xi_c, 0);
         float new_cost = robust_cost(&c, N, Rn, tn, P, uv, xr, isg, use, rho);
         int accept = ok && new_cost < cost;
         if (T) {

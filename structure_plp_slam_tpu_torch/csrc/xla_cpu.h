@@ -81,13 +81,22 @@ static void adj3x3(const float* m, float* adj, float* inv_det) {
   adj[6] = Cc; adj[7] = -fmaf(a, h, -(b * g)); adj[8] = fmaf(a, e, -(b * d));
 }
 
+/* sum_k v[k]^2 over 3 entries: a fused multiply-add chain from 0, or (with
+ * rounded, as a vector loop of XLA's kernel computes it) the rounded squares
+ * added in order. */
+static float sq3(const float* v, int rounded) {
+  if (rounded) return (v[0] * v[0] + v[1] * v[1]) + v[2] * v[2];
+  return fmaf(v[2], v[2], fmaf(v[1], v[1], fmaf(v[0], v[0], 0.0f)));
+}
+
 /* clamp_tangent(xi, max_rot, max_trans), then se3_update: (R_new, t_new) =
  * exp(xi) o (R, t), with the step zeroed unless ok; writes the clamped step
- * to xi_c. */
+ * to xi_c. rounded: the three squared norms (the clamp's two, the rotation
+ * angle's) sum rounded squares (sq3). */
 static void se3_step(float max_rot, float max_trans, const float* xi, int ok, const float* R,
-                     const float* t, float* Rn, float* tn, float* xi_c) {
-  float nr2 = fmaf(xi[2], xi[2], fmaf(xi[1], xi[1], fmaf(xi[0], xi[0], 0.0f)));
-  float np2 = fmaf(xi[5], xi[5], fmaf(xi[4], xi[4], fmaf(xi[3], xi[3], 0.0f)));
+                     const float* t, float* Rn, float* tn, float* xi_c, int rounded) {
+  float nr2 = sq3(xi, rounded);
+  float np2 = sq3(xi + 3, rounded);
   float sr = fmin_xla(max_trans * xla_rsqrt(fmax_xla(nr2, 1e-24f)), 1.0f);
   float sp = fmin_xla(max_rot * xla_rsqrt(fmax_xla(np2, 1e-24f)), 1.0f);
   for (int i = 0; i < 3; i++) {
@@ -96,7 +105,7 @@ static void se3_step(float max_rot, float max_trans, const float* xi, int ok, co
   }
   const float* rho = xi_c;
   const float* phi = xi_c + 3;
-  float th2 = fmaf(phi[2], phi[2], fmaf(phi[1], phi[1], fmaf(phi[0], phi[0], 0.0f)));
+  float th2 = sq3(phi, rounded);
   float th = sqrtf(fmax_xla(th2, 1e-24f));
   int small = fabsf(th) < 1e-4f;
   float s = small ? 1.0f : th;

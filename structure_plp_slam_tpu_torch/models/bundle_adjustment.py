@@ -22,12 +22,13 @@ distances to the projected line are the residuals
 come from ``torch.func``; the line blocks are eliminated like the point
 blocks.
 
-The monocular two-view init's BA (``_xla_init``, passed by the System's
-init only) computes each iteration on the CPU as XLA:CPU compiles the JAX
-package's init BA (``ops/ba_cpu``, a C source); the loop and its policy
-(iterations, damping, chi2 gates, step limits, the cull schedule) stay here
-and ``_ba_policy`` passes the constants. Every other call, and the card,
-runs the PyTorch iteration.
+The monocular BA of the System's two-view init and of its keyframe chain
+(``_xla="init"`` / ``"chain"``, passed by those two call sites only)
+computes each iteration on the CPU as XLA:CPU compiles the JAX package's
+(``ops/ba_cpu``, a C source); the loop and its policy (iterations, damping,
+chi2 gates, step limits, the cull schedule) stay here and ``_ba_policy``
+passes the constants. Every other call, and the card, runs the PyTorch
+iteration.
 """
 
 from __future__ import annotations
@@ -164,15 +165,16 @@ def _ba_policy(damping: float) -> tuple:
 
 def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: int = 15,
              cull_at_iters: tuple = (5,), damping: float = 1e-4,
-             obs_grid: bool = False, _xla_init: bool = False) -> BAResult:
+             obs_grid: bool = False, _xla: str = None) -> BAResult:
     """Damped Gauss-Newton with Schur elimination on a BA window, with
     the line terms of ``lines`` when given. ``cull_at_iters``: iterations
     after which observations are chi2-gated (the reference's two-phase
     structure). ``obs_grid`` is the JAX package's promise that the
     observations form a dense [C, O/C] grid, which there picks a cheaper
     contraction; the port sums by (landmark, camera) bin whatever the
-    layout, so the promise leaves the solve as it is. ``_xla_init``: the
-    System's two-view init is the caller; on the CPU (a pinhole camera,
+    layout, so the promise leaves the solve as it is. ``_xla``: the JAX
+    program whose solve this call is, ``"init"`` (the System's two-view
+    init) or ``"chain"`` (its keyframe chain); on the CPU (a pinhole camera,
     no lines) each iteration is then XLA:CPU's arithmetic (``ops/ba_cpu``)."""
     C = prob.cam_pose.shape[0]
     M = prob.lm_pos.shape[0]
@@ -207,7 +209,9 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
                                                chi2_l0.shape[0] - 1).reshape(1))[0]
         med = torch.where(torch.isfinite(med), med, zero)
         lobs_live = lobs_live & (chi2_l0 <= torch.clamp(9.0 * med, min=9.0 * robust.CHI2_2D))
-    xla = _xla_init and ba_cpu.serves(camera, prob, lines)
+    if _xla is not None and _xla not in ba_cpu.PROGRAMS:
+        raise ValueError(f"_xla={_xla!r}: the XLA:CPU iteration knows {ba_cpu.PROGRAMS}")
+    xla = _xla is not None and ba_cpu.serves(camera, prob, lines)
     if xla:
         ba_cpu.check(prob)
         policy = _ba_policy(damping)
@@ -339,7 +343,10 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
                                          <= robust.CHI2_2D)
 
     # Re-project rotations onto SO(3); fixed cameras keep their input pose.
-    cam_pose = lie.pack_pose(lie.orthonormalize(cam_pose[:, :, :3]), cam_pose[:, :, 3])
+    if xla:
+        cam_pose = ba_cpu.orthonormalize(cam_pose)
+    else:
+        cam_pose = lie.pack_pose(lie.orthonormalize(cam_pose[:, :, :3]), cam_pose[:, :, 3])
     cam_pose = torch.where(free[:, None, None], cam_pose, prob.cam_pose)
     if xla:
         chi2 = ba_cpu.obs_chi2(camera, prob, cam_pose, lm_pos, policy=policy)

@@ -36,7 +36,7 @@ import torch
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.ops import lie, linalg, robust
-from structure_plp_slam_tpu_torch.utils.types import rdiv
+from structure_plp_slam_tpu_torch.utils.types import rdiv, resolve_device
 
 MIN_OBS = 100        # fewer observations than this: no global BA
 
@@ -73,10 +73,12 @@ def prepare(state, inv_sigma_sq_table, max_obs_per_lm: int = 12) -> GlobalBAData
 
 
 def prepare_from_arrays(kf_valid, kp_valid, lm_idx, lm_valid, xy, xr, level, table,
-                        max_obs_per_lm: int = 12, device="cpu") -> GlobalBAData:
+                        max_obs_per_lm: int = 12, device=None) -> GlobalBAData:
     """Observations and co-observation pairs from host arrays (numpy).
     Only the first ``max_obs_per_lm`` observations of a landmark enter the
-    pair list; all of them enter Hcc, Hll and b."""
+    pair list; all of them enter Hcc, Hll and b. The tensors go to
+    ``device``: CUDA unless asked (``utils/types.resolve_device``)."""
+    device = resolve_device(device)
     ks, ns = np.nonzero((lm_idx >= 0) & kp_valid & kf_valid[:, None])
     lms = lm_idx[ks, ns]
     keep = lm_valid[lms]

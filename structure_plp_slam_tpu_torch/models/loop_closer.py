@@ -36,7 +36,7 @@ from structure_plp_slam_tpu_torch.data.bow import BowIndex
 from structure_plp_slam_tpu_torch.models import global_ba, mapper
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.ops import lie, matching, sim3_solver
-from structure_plp_slam_tpu_torch.utils.types import HostCopy, nonzero_static
+from structure_plp_slam_tpu_torch.utils.types import HostCopy, nonzero_static, resolve_device
 
 _log = logging.getLogger("plpslam.torch.loop_closer")
 
@@ -114,12 +114,12 @@ def _pack_detect_arrays(cov, kf, scores, kf_valid):
 class LoopCloser:
     def __init__(self, camera, max_keyframes: int = 0, *,
                  min_continuity: int = MIN_CONTINUITY, min_inliers: int = MIN_INLIERS,
-                 min_gap: int = MIN_GAP, device="cpu"):
+                 min_gap: int = MIN_GAP, device=None):
         # max_keyframes is accepted as the JAX package accepts it: the
         # retrieval index is stateless over the MapState and needs no
         # capacity. The thresholds are read at every call.
         self.camera = camera
-        self.device = torch.device(device)
+        self.device = resolve_device(device)  # CUDA unless asked
         self.bow = BowIndex()
         self.min_continuity = min_continuity
         self.min_inliers = min_inliers

@@ -37,10 +37,6 @@ FUSE_RADIUS = 3.0
 FUSE_MAX_HAMMING = 50
 
 
-def _unit(v):
-    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-9)
-
-
 # ---------------------------------------------------------------------------
 # Keyframe insertion + depth-seeded landmarks (RGB-D).
 # ---------------------------------------------------------------------------
@@ -106,9 +102,11 @@ def triangulate_pair(camera, state: ms.MapState, kf1, kf2, base_lm_slot, enable=
     free2 = state.kf_kp_valid[kf2] & (state.kf_lm_idx[kf2] < 0)
     R1, t1 = state.kf_pose[kf1, :, :3], state.kf_pose[kf1, :, 3]
     R2, t2 = state.kf_pose[kf2, :, :3], state.kf_pose[kf2, :, 3]
-    R_21 = R2 @ R1.T
-    t_21 = t2 - R_21 @ t1
-    E = lie.hat(t_21) @ R_21
+    # On the CPU every product below is XLA:CPU's dot or fused sum for its
+    # shapes (ops/linalg), as the JAX chain computes it.
+    R_21 = linalg.matmul(R2, R1.T)
+    t_21 = t2 - linalg.matvec(R_21, t1)
+    E = linalg.matmul(lie.hat(t_21), R_21)
 
     d = matching.distance_matrix_mxu(
         matching.unpack_desc_bits(state.kf_desc[kf1]),
@@ -116,11 +114,11 @@ def triangulate_pair(camera, state: ms.MapState, kf1, kf2, base_lm_slot, enable=
         free1, free2,
     )
     # Epipolar residual |b2 . E b1|^2 with both-sided normalization.
-    Eb1 = b1 @ E.T
-    num = Eb1 @ b2.T  # [N1, N2]
-    d1 = torch.clamp(torch.sum(Eb1 * Eb1, dim=-1), min=1e-12)[:, None]
-    Etb2 = b2 @ E
-    d2 = torch.clamp(torch.sum(Etb2 * Etb2, dim=-1), min=1e-12)[None, :]
+    Eb1 = linalg.einsum_fma("ij,nj->ni", E, b1)
+    num = linalg.einsum_fma("mi,ni->nm", b2, Eb1)  # [N1, N2]
+    d1 = torch.clamp(linalg.sq_norm(Eb1), min=1e-12)[:, None]
+    Etb2 = linalg.rows_matmul3(b2, E)
+    d2 = torch.clamp(linalg.sq_norm(Etb2), min=1e-12)[None, :]
     epi = num * num * (1.0 / d1 + 1.0 / d2)
     lvl_sig = torch.pow(scale_factor, state.kf_level[kf1].to(torch.float32)) ** 2
     thr = (2.0 / camera.focal_like) ** 2 * lvl_sig
@@ -133,26 +131,28 @@ def triangulate_pair(camera, state: ms.MapState, kf1, kf2, base_lm_slot, enable=
 
     b2m = b2[best]
     pts_w = triangulation.triangulate_two_view(b1, b2m, R1, t1, R2, t2)
-    pts_c1 = pts_w @ R1.T + t1
-    pts_c2 = pts_w @ R2.T + t2
+    pts_c1 = linalg.einsum_fma("ij,nj->ni", R1, pts_w) + t1
+    pts_c2 = linalg.einsum_fma("ij,nj->ni", R2, pts_w) + t2
     depth_ok = cam_base.cheirality(camera, pts_c1) & cam_base.cheirality(camera, pts_c2)
 
     def reproj_ok(pc, obs):
         uv, _ = cam_base.project(camera, pc)
-        err = torch.sum(cam_base.uv_residual(camera, uv, obs) ** 2, dim=-1)
+        err = linalg.sq_norm(cam_base.uv_residual(camera, uv, obs))
         return err <= 5.991 * lvl_sig
 
     rp_ok = reproj_ok(pts_c1, state.kf_xy[kf1]) & reproj_ok(pts_c2, state.kf_xy[kf2][best])
-    parallax_ok = torch.sum((b1 @ R_21.T) * b2m, dim=-1) < 0.99995
+    b1_in_2 = linalg.einsum_fma("ij,nj->ni", R_21, b1)
+    parallax_ok = linalg.einsum_fma("ni,ni->n", b1_in_2, b2m) < 0.99995
     good = ok & depth_ok & rp_ok & parallax_ok & free1 & enable
 
     slots = base_lm_slot + torch.cumsum(good.to(torch.int64), 0) - 1
     good = good & (slots < L)  # capacity gate
-    dist_max = torch.linalg.norm(pts_c1, dim=-1) * torch.pow(
+    dist_max = linalg.norm(pts_c1) * torch.pow(
         scale_factor, state.kf_level[kf1].to(torch.float32)
     )
-    dist_min = dist_max / (scale_factor**7)
-    view = _unit(pts_w - (-(t1 @ R1))[None, :])
+    dist_min = linalg.div_const(dist_max, scale_factor**7)
+    view = pts_w - (-linalg.vecmat(t1, R1))[None, :]
+    view = view / torch.clamp(linalg.norm(view), min=1e-9)[:, None]
     kf1_ids = torch.full((N,), 0, dtype=torch.int64, device=dev) + kf1
     state = ms.add_landmarks(state, slots, pts_w, state.kf_desc[kf1], view,
                              dist_min, dist_max, kf1_ids, good)
@@ -206,18 +206,35 @@ def map_scale(state: ms.MapState, kf):
 # ---------------------------------------------------------------------------
 
 
+def _int_pow_f32(x: float, n: int) -> float:
+    """``jnp.float32(x) ** n`` for an integer ``n``, as ``lax.integer_pow``
+    multiplies it out in f32 (binary exponentiation), which XLA folds into
+    a constant."""
+    acc, x32 = None, torch.tensor(x, dtype=torch.float32)
+    while n > 0:
+        if n & 1:
+            acc = x32 if acc is None else acc * x32
+        n >>= 1
+        if n:
+            x32 = x32 * x32
+    return float(acc if acc is not None else torch.tensor(1.0))
+
+
 def _camera_centers(state):
     R = state.kf_pose[:, :, :3]
     t = state.kf_pose[:, :, 3]
-    return -torch.einsum("kji,kj->ki", R, t)  # [K, 3]
+    return -linalg.einsum_fma("kji,kj->ki", R, t)  # [K, 3]
 
 
 def _mean_normals(state, ind):
     """Mean viewing direction over current observers (unit sum of
-    X - C_k), and the observer count."""
+    X - C_k), and the observer count. On the CPU the observers' centers
+    are summed in keyframe order and ``n X - sum`` is fused, as XLA:CPU
+    compiles the JAX package's."""
     n_obs = torch.sum(ind, dim=0)
-    dir_sum = n_obs[:, None] * state.lm_pos - ind.T @ _camera_centers(state)
-    normal = dir_sum / torch.clamp(torch.linalg.norm(dir_sum, dim=-1, keepdim=True), min=1e-9)
+    sum_c = linalg.einsum_fma("kl,ki->li", ind, _camera_centers(state))
+    dir_sum = linalg.fms(n_obs[:, None], state.lm_pos, sum_c)
+    normal = dir_sum / torch.clamp(linalg.norm(dir_sum), min=1e-9)[:, None]
     return normal, n_obs
 
 
@@ -260,14 +277,13 @@ def refresh_landmark_stats(state: ms.MapState, ind=None, *, scale_factor: float 
     ind_up = torch.zeros((K, L + 1), dtype=torch.float32, device=dev)
     ind_up.index_put_((rows, lm_safe_all), w_up, accumulate=True)
     ind_up = ind_up[:, :L]
-    d2 = (
-        torch.sum(state.lm_pos**2, dim=-1)[None, :]
-        - 2.0 * (C @ state.lm_pos.T)
-        + torch.sum(C**2, dim=-1)[:, None]
-    )
-    dist_kl = torch.sqrt(torch.clamp(d2, min=0.0))
-    dist_max = torch.sum(ind_up * dist_kl, dim=0) / torch.clamp(n_obs, min=1.0)
-    dist_min = dist_max / sf32 ** (num_levels - 1)
+    # |X - C|^2 = |X|^2 - 2 C.X + |C|^2 (XLA fuses the first sum, which is
+    # exact here: 2 C.X is).
+    cross = linalg.einsum_fma("ki,li->kl", C, state.lm_pos)
+    d2 = (linalg.sq_norm(state.lm_pos)[None, :] - 2.0 * cross) + linalg.sq_norm(C)[:, None]
+    dist_kl = linalg.sqrt(torch.clamp(d2, min=0.0))
+    dist_max = linalg.gemv_sum(ind_up, dist_kl) / torch.clamp(n_obs, min=1.0)
+    dist_min = linalg.div_const(dist_max, _int_pow_f32(scale_factor, num_levels - 1))
 
     # ---- flat observation list (descriptor refresh) ---------------------
     if window_kfs is None:
@@ -502,15 +518,15 @@ def _write_back_lines(state, result, lw, l_safe):
 def local_ba(camera, state: ms.MapState, current_kf, inv_sigma_sq_table, *,
              max_opt: int = 16, max_fix: int = 16, max_lms: int = 4096,
              with_lines: bool = False, max_lines: int = 128, ind=None,
-             return_cams: bool = False, _xla_init: bool = False):
+             return_cams: bool = False, _xla: str = None):
     """Local bundle adjustment around ``current_kf``
     (local_bundle_adjuster.cc:73-135): optimized cameras = the top
     ``max_opt`` covisibles, landmarks = those they observe (first
     ``max_lms``), fixed cameras = other observers (first ``max_fix``).
     ``with_lines``: the joint point + line window
     (local_bundle_adjuster_extended_line.cc:69-) over the first
-    ``max_lines`` lines the window observes. ``_xla_init``: the System's
-    two-view init is the caller (``ba_solve``'s XLA:CPU iteration).
+    ``max_lines`` lines the window observes. ``_xla``: the System's call
+    site, ``"init"`` or ``"chain"`` (``ba_solve``'s XLA:CPU iteration).
     Returns (state, chi2[, window cameras with -1 padding])."""
     K = state.kf_pose.shape[0]
     L = state.lm_pos.shape[0]
@@ -583,7 +599,7 @@ def local_ba(camera, state: ms.MapState, current_kf, inv_sigma_sq_table, *,
         lw, l_safe = _line_window(state, cams, cam_ok, inv_sigma_sq_table, max_lines)
     # 8 damped-GN iterations with the outlier cull after 4.
     result = ba.ba_solve(camera, prob, lw, obs_grid=True, num_iters=8, cull_at_iters=(4,),
-                         _xla_init=_xla_init)
+                         _xla=_xla)
 
     write_cam = (~cam_fixed) & cam_ok
     old_pose = state.kf_pose

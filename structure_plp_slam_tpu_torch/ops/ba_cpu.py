@@ -1,12 +1,18 @@
-"""The two-view init's local BA iteration on the CPU, as XLA:CPU computes the
-JAX package's (``csrc/ba_solve_cpu.c``).
+"""The monocular local BA iteration on the CPU, as XLA:CPU computes the JAX
+package's (``csrc/ba_solve_cpu.c``), in the two programs that run it: the
+two-view init (``"init"``) and the keyframe chain (``"chain"``).
 
 XLA:CPU compiles the JAX System's init BA (the jitted ``mapper.local_ba``
-over the two init keyframes: C = 8 window cameras, M = 4096 landmarks, the
-observations a dense [C, Ng] grid) into kernels whose fused multiply-adds and
-summation orders follow each kernel; the C source repeats one Gauss-Newton
-iteration of that compile operation for operation (``python -m
-tests.xla_init_ba`` dumps it and measures the Schur product's blocks).
+over the two init keyframes: C = 8 window cameras) and the keyframe chain's
+(``system.py``'s jitted ``_kf_chain``: C = 32), each over M = 4096 landmarks
+and the observations as a dense [C, Ng] grid, into kernels whose fused
+multiply-adds and summation orders follow each kernel; the C source repeats
+one Gauss-Newton iteration of that compile operation for operation (``python
+-m tests.xla_init_ba`` and ``python -m tests.xla_chain_ba`` dump the programs
+and measure the Schur product's blocks). Both programs compile the iteration
+into the same kernels; where the vectorizer lays a kernel out by its shapes,
+the layout is a table keyed by the shape (``_SCHUR_BLOCKS``, ``_GRID_BLOCKS``,
+``_UPDATE_LAYOUT``).
 ``models/bundle_adjustment.ba_solve`` keeps the solver's loop and policy and
 calls, per iteration, :func:`normal_equations`, the camera solve
 (``ops/linalg``: XLA's LAPACK routines) and :func:`update`; its cull and its
@@ -38,9 +44,31 @@ SOURCE = host_c.CSRC / "ba_solve_cpu.c"
 # The Schur product's block length over its contraction index K = k M + m,
 # by (6C, 3M): XLA:CPU's dot sums K in consecutive blocks of this length (the
 # last one shorter), each block one chain. Measured with jax / jaxlib 0.9.0 on
-# an x86-64 Xeon with AVX-512 (tests/xla_init_ba.py; tests/test_torch_init_ba_
-# xla.py holds the entry against XLA's dot).
-_SCHUR_BLOCKS = {(48, 12288): 682}
+# an x86-64 Xeon with AVX-512 (tests/xla_init_ba.py, tests/xla_chain_ba.py;
+# tests/test_torch_init_ba_xla.py and test_torch_chain_ba_xla.py hold the
+# entries against XLA's dot).
+_SCHUR_BLOCKS = {(48, 12288): 682, (192, 12288): 512}
+# The update's layout by 6C, as XLA:CPU's vectorizer lays its kernels out:
+# the back-substitution W^T dx_c ([3M, 6C] x [6C]) in accumulators of 8 lanes
+# through the groups of 8 camera entries in an order (None for in order), and
+# how many leading cameras the camera step's squared norms (the clamp's two,
+# the rotation angle's) sum as rounded squares in a vector loop, the rest as
+# fused chains. At 48 (the init): one accumulator through the groups 0, 2, 4,
+# 3, 1, 5, every norm fused; at 192 (the chain): four accumulators, group g
+# into g % 4, cameras 0-23 rounded (the dumped bitcast_dot_fusion,
+# maximum_rsqrt_fusion and multiply_reduce_fusion kernels;
+# tests/xla_chain_ba.py lists them, tests/test_torch_chain_ba_xla.py holds
+# both against XLA's).
+_UPDATE_LAYOUT = {48: (1, (0, 2, 4, 3, 1, 5), 0), 192: (4, None, 24)}
+# The grid contraction's run length by (C, Ng, M): XLA:CPU's library dot of
+# the one-hot grid ([C, Ng, M] against [C, Ng, 30]) sums each camera row in
+# two runs, each one chain, the runs added in order; it decides where a
+# landmark sits three times in one keyframe row (tests/xla_chain_ba.py
+# probes it).
+_GRID_BLOCKS = {(8, 640, 4096): 320, (32, 640, 4096): 320, (8, 616, 4096): 312,
+                (32, 616, 4096): 312}
+# The programs whose BA iteration the C source computes (ba_solve's _xla).
+PROGRAMS = ("init", "chain")
 _UNMEASURED: set = set()
 # Floats per observation in the trace (csrc/ba_solve_cpu.c OBS_TRACE).
 _OBS_TRACE = 97
@@ -61,9 +89,45 @@ def schur_block(D: int, K: int) -> int:
             _log.warning(
                 "the BA's Schur product [%d, %d] x [%d, %d] has no measured XLA:CPU "
                 "summation order; summing it in one chain, so the solve may differ from "
-                "the JAX package's in the last place (add the shape to tests/xla_init_ba.py "
+                "the JAX package's in the last place (add the shape to tests/xla_chain_ba.py "
                 "and extend _SCHUR_BLOCKS)", D, K, K, D)
     return block
+
+
+def grid_block(C: int, Ng: int, M: int) -> int:
+    """The grid contraction's run length over a camera row of ``Ng`` slots
+    (``_GRID_BLOCKS``; the whole row outside the table, with one warning)."""
+    block = _GRID_BLOCKS.get((C, Ng, M))
+    if block is None:
+        block = Ng
+        if (C, Ng, M) not in _UNMEASURED:
+            _UNMEASURED.add((C, Ng, M))
+            _log.warning(
+                "the BA's grid contraction over [%d, %d, %d] has no measured XLA:CPU "
+                "summation order; summing each camera row in one run, so a landmark seen "
+                "three times in one keyframe may differ from the JAX package's in the last "
+                "place (probe it with tests/xla_chain_ba.py and extend _GRID_BLOCKS)",
+                C, Ng, M)
+    return block
+
+
+def update_layout(D: int) -> tuple:
+    """The update's layout for 6C = ``D``: W^T dx_c's accumulators and group
+    order, and the cameras whose step norms sum rounded squares
+    (``_UPDATE_LAYOUT``; one accumulator in order and every norm fused outside
+    the table, with one warning)."""
+    layout = _UPDATE_LAYOUT.get(D)
+    if layout is None:
+        layout = (1, None, 0)
+        if D not in _UNMEASURED:
+            _UNMEASURED.add(D)
+            _log.warning(
+                "the BA's update over 6C = %d camera entries has no measured XLA:CPU "
+                "layout; summing its back-substitution in 8 lanes in order and its step norms "
+                "fused, so the solve may differ from the JAX package's in the last place (read "
+                "it from the dumped kernels, tests/xla_chain_ba.py --dump, and extend "
+                "_UPDATE_LAYOUT)", D)
+    return layout
 
 
 def _load():
@@ -72,12 +136,15 @@ def _load():
         if _lib is None:
             lib = host_c.load(SOURCE)
             lib.ba_normal_cpu.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [
-                ctypes.c_int] + [ctypes.c_void_p] * 8
+                ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
             lib.ba_normal_cpu.restype = ctypes.c_int
-            lib.ba_update_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-            lib.ba_update_cpu.restype = None
+            lib.ba_update_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+            lib.ba_update_cpu.restype = ctypes.c_int
             lib.ba_chi2_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
             lib.ba_chi2_cpu.restype = None
+            lib.ba_orthonormalize_cpu.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
+            lib.ba_orthonormalize_cpu.restype = None
             lib.ba_schur_cpu.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
             lib.ba_schur_cpu.restype = ctypes.c_int
             _lib = lib
@@ -99,7 +166,7 @@ def serves(camera, prob, lines) -> bool:
 
 def check(prob) -> None:
     """Raise unless the observations of a problem that :func:`serves` takes
-    are what the init's compile solves: monocular, on a dense [C, Ng] grid
+    are what the programs' compile solves: monocular, on a dense [C, Ng] grid
     (``obs_cam[o] == o // Ng``)."""
     C, O = prob.cam_pose.shape[0], prob.obs_cam.shape[0]
     grid = torch.arange(C)[:, None].expand(C, O // C).reshape(-1)
@@ -140,10 +207,8 @@ def normal_equations(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: 
            _c(free, torch.uint8)]
     p = host_c.ptr
     rc = _load().ba_normal_cpu(C, M, O // C, *(p(x) for x in ins), schur_block(D, 3 * M),
-                               p(S), p(rhs), p(Hinv), p(W), p(bl), p(obs_tr), p(lm_tr), p(cam_tr))
-    if rc == 1:
-        raise ValueError("the XLA:CPU BA iteration needs each landmark observed at most once "
-                         "per window camera")
+                               grid_block(C, O // C, M), p(S), p(rhs), p(Hinv), p(W), p(bl),
+                               p(obs_tr), p(lm_tr), p(cam_tr))
     if rc != 0:
         raise RuntimeError(f"ba_normal_cpu returned {rc}")
     out = (S, rhs, Hinv, W, bl)
@@ -175,8 +240,13 @@ def update(camera, dx_c, Hinv, W, bl, cam_pose, lm_pos, free, lm_valid, *, polic
     dxl = torch.empty((M, 3), dtype=torch.float32) if trace else None
     ins = [_camf(camera, policy), _c(dx_c.reshape(-1)), _c(Hinv), _c(W), _c(bl), _c(cam_pose),
            _c(lm_pos), _c(free, torch.uint8), _c(lm_valid, torch.uint8)]
+    accs, order, vec_cams = update_layout(6 * C)
+    order = None if order is None else torch.tensor(order, dtype=torch.int32)
     p = host_c.ptr
-    _load().ba_update_cpu(C, M, *(p(x) for x in ins), p(Pn), p(Xn), p(dxl))
+    rc = _load().ba_update_cpu(C, M, *(p(x) for x in ins), accs, p(order), vec_cams, p(Pn),
+                               p(Xn), p(dxl))
+    if rc != 0:
+        raise RuntimeError(f"ba_update_cpu returned {rc}")
     return (Pn, Xn, dxl) if trace else (Pn, Xn)
 
 
@@ -189,6 +259,14 @@ def iteration(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: tuple):
     dx_c = linalg.cho_solve(linalg.cho_factor(S), rhs)
     return update(camera, dx_c, Hinv, W, bl, cam_pose, lm_pos, free, prob.lm_valid,
                   policy=policy)
+
+
+def orthonormalize(cam_pose):
+    """``lie.orthonormalize`` of every pose's rotation as the programs compile
+    it (the solve's last step), the translations kept: ``[C, 3, 4]``."""
+    out = torch.empty((cam_pose.shape[0], 3, 4), dtype=torch.float32)
+    _load().ba_orthonormalize_cpu(cam_pose.shape[0], host_c.ptr(_c(cam_pose)), host_c.ptr(out))
+    return out
 
 
 def obs_chi2(camera, prob, cam_pose, lm_pos, *, policy: tuple):

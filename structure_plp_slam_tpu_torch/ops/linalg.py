@@ -426,16 +426,41 @@ def sqrt(x):
     return torch.sqrt(x.double()).to(x.dtype)
 
 
-def norm(v):
-    """``jnp.linalg.norm(v, axis=-1)``: on the CPU the squares summed in one
-    fused multiply-add chain in increasing order and a correctly rounded
-    root, as XLA:CPU computes it; on the card ``torch.linalg.norm``."""
+def sq_norm(v):
+    """``jnp.sum(v ** 2, axis=-1)``: on the CPU one fused multiply-add chain
+    in increasing order, as XLA:CPU computes it; on the card the plain
+    sum."""
     if v.device.type != "cpu":
-        return torch.linalg.norm(v, dim=-1)
+        return torch.sum(v * v, dim=-1)
     acc = v[..., 0] * v[..., 0]
     for k in range(1, v.shape[-1]):
         acc = fma(v[..., k], v[..., k], acc)
-    return sqrt(acc)
+    return acc
+
+
+def norm(v):
+    """``jnp.linalg.norm(v, axis=-1)``: on the CPU the squares summed in one
+    fused multiply-add chain in increasing order (:func:`sq_norm`) and a
+    correctly rounded root, as XLA:CPU computes it; on the card
+    ``torch.linalg.norm``."""
+    if v.device.type != "cpu":
+        return torch.linalg.norm(v, dim=-1)
+    return sqrt(sq_norm(v))
+
+
+def gemv_sum(a, b):
+    """``jnp.einsum("kl,kl->l", a, b)``: the sum over the first axis of
+    ``a * b``. On the CPU as XLA:CPU's column-major gemv kernel sums it
+    (read at 32 rows): the first tile of 8 products rounded and added in
+    order, each later product fused into the sum (rows of ``a`` that are
+    all zero add exact zeros to finite ``b`` and are skipped); on the card
+    the plain sum."""
+    if a.device.type != "cpu":
+        return torch.sum(a * b, dim=0)
+    acc = torch.zeros(a.shape[1:], dtype=a.dtype)
+    for k in torch.nonzero(torch.any(a.reshape(a.shape[0], -1) != 0, dim=1)).flatten().tolist():
+        acc = acc + a[k] * b[k] if k < 8 else fma(a[k], b[k], acc)
+    return acc
 
 
 def tree_sum(x, dim: int = -1):
@@ -475,7 +500,8 @@ def einsum_fma(eq, a, b):
     """``torch.einsum(eq, a, b)`` with one contracted index. On the CPU
     summed as XLA:CPU's dot of these small shapes: each output one fused
     multiply-add chain over the contracted index in increasing order,
-    from 0 (:func:`fma`); on the card the einsum."""
+    from 0 (:func:`fma`; a slice of ``a`` that is all zero adds exact zeros
+    to finite ``b`` and is skipped); on the card the einsum."""
     if a.device.type != "cpu":
         return torch.einsum(eq, a, b)
     ins, out = eq.replace("...", "").split("->")
@@ -485,7 +511,10 @@ def einsum_fma(eq, a, b):
     eq1 = eq.replace(c, "")
     acc = None
     for k in range(a.shape[da]):
-        prod = torch.einsum(eq1, a.select(da, k).double(), b.select(db, k).double())
+        ak = a.select(da, k)
+        if acc is not None and not bool(torch.any(ak != 0)):
+            continue
+        prod = torch.einsum(eq1, ak.double(), b.select(db, k).double())
         acc = prod.float() if acc is None else _fma_round(prod, acc)
     return acc
 

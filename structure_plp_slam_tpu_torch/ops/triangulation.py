@@ -51,11 +51,13 @@ def triangulate_dlt(bearings_1, bearings_2, R_21, t_21):
 
 
 def triangulate_two_view(bear_1, bear_2, R_1w, t_1w, R_2w, t_2w):
-    """Triangulate to world coordinates given world->cam poses."""
-    R_21 = R_2w @ R_1w.transpose(-1, -2)
-    t_21 = t_2w - torch.einsum("...ij,...j->...i", R_21, t_1w)
+    """Triangulate to world coordinates given world->cam poses (one pair of
+    poses, ``R [3, 3]``, ``t [3]``). On the CPU the relative pose and the
+    points' way back to the world are XLA:CPU's dots (``ops/linalg``)."""
+    R_21 = linalg.matmul(R_2w, R_1w.transpose(-1, -2))
+    t_21 = t_2w - linalg.matvec(R_21, t_1w)
     pts_c1 = triangulate_dlt(bear_1, bear_2, R_21, t_21)
-    return torch.einsum("...ji,...nj->...ni", R_1w, pts_c1 - t_1w[..., None, :])
+    return linalg.rows_matmul3(pts_c1 - t_1w[..., None, :], R_1w)
 
 
 def rays_parallax_cos(bear_1, bear_2, R_21):

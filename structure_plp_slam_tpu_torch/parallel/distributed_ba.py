@@ -33,6 +33,7 @@ import torch
 
 from structure_plp_slam_tpu_torch.models import global_ba as gba
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
+from structure_plp_slam_tpu_torch.utils.types import resolve_device
 
 
 class LandmarkMesh:
@@ -305,7 +306,7 @@ def make_distributed_ba(mesh: LandmarkMesh, camera, *, num_iters: int = 10,
     return run
 
 
-def shard_chain_pairs(c1, c2, obs_owner_map, n_shards: int, chain_pos, device="cpu"):
+def shard_chain_pairs(c1, c2, obs_owner_map, n_shards: int, chain_pos, device=None):
     """Map the global chain-pair observation indices
     (``global_ba.prepare_chain_pairs``) and their chain positions
     (``global_ba.chain_positions``, where the single-device ``solve_pcg``
@@ -315,7 +316,9 @@ def shard_chain_pairs(c1, c2, obs_owner_map, n_shards: int, chain_pos, device="c
     (:func:`shard_problem` with ``return_map=True``). Both members of a
     chain pair observe one landmark, so they live on one shard. Returns
     ``(o1, o2, cpos)``: flat ``[n_shards * P_shard]`` local slots and
-    chain positions, -1 padded, on ``device``."""
+    chain positions, -1 padded, on ``device`` (CUDA unless asked,
+    ``utils/types.resolve_device``)."""
+    device = resolve_device(device)
     c1 = np.asarray(c1)
     c2 = np.asarray(c2)
     live = c1 >= 0

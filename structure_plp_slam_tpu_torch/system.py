@@ -379,8 +379,12 @@ def _kf_chain(camera, st, slot, pose, ts, feats, kp_lm, next_lm, inv_sigma_sq, i
     if do_ba:
         if with_lines:
             st = line_mapper.refresh_lines(camera, st)
+        # A monocular chain's BA is, on the CPU, XLA:CPU's (ops/ba_cpu); the
+        # stereo and RGB-D chains' take the PyTorch iteration.
+        mono = camera.setup is CameraSetup.MONOCULAR
         st, _, ba_cams = mapper.local_ba(camera, st, slot, inv_sigma_sq, with_lines=with_lines,
-                                         ind=ind, return_cams=True)
+                                         ind=ind, return_cams=True,
+                                         _xla="chain" if mono else None)
         ind = ms.indicator_update_rows(ind, st, ba_cams)
     if do_cull_kf:
         st, _ = mapper.cull_keyframes(st, slot, ind=ind)
@@ -1176,7 +1180,7 @@ class System:
         # The two-view BA (initializer.cc:306-307 runs global BA); on the CPU
         # as XLA:CPU computes the JAX package's init BA.
         self._state, _ = mapper.local_ba(self.camera, st, 1, self.frontend.inv_sigma_sq,
-                                         max_opt=4, max_fix=4, max_lms=4096, _xla_init=True)
+                                         max_opt=4, max_fix=4, max_lms=4096, _xla="init")
         self.pose = (res.R_2w, t2)
         self.vel = (eye, torch.zeros((3,), dtype=torch.float32, device=dev))
         self.last_kp_lm = self._state.kf_lm_idx[1]

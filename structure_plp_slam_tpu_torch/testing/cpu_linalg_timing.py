@@ -5,7 +5,8 @@
 
 On the CPU, ``ops/linalg`` loops every batch of small factorizations
 into scipy's LAPACK, one call per matrix, as XLA:CPU computes them; this
-script times the two steps where those batches are largest. Everything
+script times the steps where those batches are largest, and the steps
+that compute XLA:CPU's arithmetic in a C source. Everything
 runs on the CPU. Prints one JSON object per measurement, the median of
 ``--repeats`` runs after one warm-up, in seconds:
 
@@ -30,6 +31,13 @@ runs on the CPU. Prints one JSON object per measurement, the median of
   slots; ``ops/ba_cpu``'s C source on the CPU) at 640x480 with 1000
   keypoints over 8 levels on numpy seed 42's sequence, a new System per
   repeat;
+* ``chain_ba_640x480``: the local BA of the same System's first keyframe
+  chain after the init (its first ``mapper.local_ba`` call with
+  ``return_cams``: 32 window cameras, 4096 landmark slots; ``ops/ba_cpu``'s
+  C source on the CPU), the call recorded once and repeated;
+* ``kf_chain_640x480``: that chain whole (``system._kf_chain``: insert,
+  cull, triangulate, fuse, the local BA, the statistics; XLA:CPU's
+  arithmetic on the CPU), recorded once and repeated on its input;
 * ``match_stereo_640x480``, ``match_stereo_752x480`` and
   ``match_stereo_1241x376``: the stereo frontend's ``match_stereo`` on one
   rendered pair (numpy seed 0) at the 640x480 main path's camera (0.1 m
@@ -174,6 +182,52 @@ def init_ba_640(repeats: int) -> dict:
     return dict(name="init_ba_640x480", seconds=statistics.median(per_run[1:]))
 
 
+def _first_chain_call(owner, name: str, want):
+    """The first call of ``owner.name`` that ``want(kwargs)`` accepts, in
+    the monocular System at 640x480 (1000 keypoints over 8 levels, numpy
+    seed 42's sequence, 32 keyframes): ``(the function, args, kwargs)``."""
+    cam = Camera(name="b", setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE,
+                 cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5, fps=30.0)
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12, step=0.08)
+    fn = getattr(owner, name)
+    calls = []
+
+    def record(*a, **k):
+        if want(k) and not calls:
+            calls.append((a, k))
+        return fn(*a, **k)
+
+    setattr(owner, name, record)
+    try:
+        slam = system_mod.System(
+            Config(camera=cam, orb=OrbParams(max_num_keypts=1000, num_levels=8), raw={}),
+            device="cpu", enable_loop_closing=False, max_keyframes=32, max_landmarks=8192,
+            max_kf_interval=3)
+        slam.startup()
+        for img, _, ts in frames:
+            slam.feed_monocular_frame(img, ts)
+            if calls:
+                break
+        slam.shutdown()
+    finally:
+        setattr(owner, name, fn)
+    (a, k), = calls
+    return fn, a, k
+
+
+def chain_ba_640(repeats: int) -> dict:
+    local_ba, a, k = _first_chain_call(system_mod.mapper, "local_ba",
+                                       lambda k: k.get("return_cams"))
+    return dict(name="chain_ba_640x480", slot=int(a[2]),
+                seconds=_median_seconds(lambda: local_ba(*a, **k), repeats))
+
+
+def kf_chain_640(repeats: int) -> dict:
+    chain, a, k = _first_chain_call(system_mod, "_kf_chain", lambda k: k.get("do_ba"))
+    return dict(name="kf_chain_640x480", slot=int(a[2]),
+                seconds=_median_seconds(lambda: chain(*a, **k), repeats))
+
+
 # (name, cols, rows, fx, focal_x_baseline, keypoints, slots): the main
 # path's stereo camera and the EuRoC and KITTI stereo YAMLs' sizes, focal
 # lengths and baselines (chip_smoke.py DATASET_CAMERAS).
@@ -236,7 +290,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     torch.set_num_threads(args.threads)
     for measure in (global_ba_iter, mono_init, track_frame_320, track_frame_640, init_ba_640,
-                    match_stereo_640, match_stereo_752, match_stereo_1241):
+                    chain_ba_640, kf_chain_640, match_stereo_640, match_stereo_752,
+                    match_stereo_1241):
         if args.only and measure.__name__ not in args.only:
             continue
         print(json.dumps(dict(measure(args.repeats), threads=args.threads)), flush=True)

@@ -652,7 +652,8 @@ def test_loop_closer_signature():
     package; ``device`` is keyword-only."""
     from structure_plp_slam_tpu_torch.models import loop_closer as tloop
 
-    lc = tloop.LoopCloser(TCAM, 64, min_continuity=2, min_inliers=25, min_gap=4)
+    lc = tloop.LoopCloser(TCAM, 64, min_continuity=2, min_inliers=25, min_gap=4,
+                          device="cpu")
     assert (lc.min_continuity, lc.min_inliers, lc.min_gap) == (2, 25, 4)
     with pytest.raises(TypeError):
         tloop.LoopCloser(TCAM, 64, "cpu")

@@ -151,7 +151,7 @@ def test_shard_problem_exact(n):
     c1, c2, raw = jgba.prepare_chain_pairs(data, np.asarray(jst.kf_valid))
     obs_cam = np.asarray(data.obs_cam)
     pos = N(tgba.chain_positions(T(obs_cam), T(c1), T(raw)))
-    o1, o2, cpos = tdba.shard_chain_pairs(c1, c2, mt, n, pos)
+    o1, o2, cpos = tdba.shard_chain_pairs(c1, c2, mt, n, pos, device="cpu")
     jo1, jo2, _ = jdba.shard_chain_pairs(c1, c2, mj, n)
     for a, b in ((o1, jo1), (o2, jo2)):
         assert a.shape == b.shape and (N(a) == np.asarray(b)).all()
@@ -243,7 +243,7 @@ def _chain_problem(K):
     c1, c2, raw = jgba.prepare_chain_pairs(data, np.asarray(jst.kf_valid))
     o1, o2, _ = jdba.shard_chain_pairs(c1, c2, obs_map, 8)
     pos = N(tgba.chain_positions(T(np.asarray(data.obs_cam)), T(c1), T(raw)))
-    cpos = tdba.shard_chain_pairs(c1, c2, obs_map, 8, pos)[2]
+    cpos = tdba.shard_chain_pairs(c1, c2, obs_map, 8, pos, device="cpu")[2]
     chain = (o1, o2, jnp.asarray(N(cpos), jnp.int32))
     comp = (jnp.asarray(np.clip(raw, 0, K - 1), jnp.int32), jnp.asarray(raw >= 0))
     tst = tms.from_numpy({f: np.asarray(getattr(jst, f)) for f in jst._fields}, "cpu")

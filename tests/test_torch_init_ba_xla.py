@@ -3,12 +3,12 @@
 The JAX System runs its monocular init's two-view BA as one jitted
 ``mapper.local_ba`` (8 window cameras, 4096 landmark slots, 8 Gauss-Newton
 iterations with a cull after the fifth). The port's System passes
-``_xla_init`` from that call site, and on the CPU ``ba_solve`` then computes
+``_xla="init"`` from that call site, and on the CPU ``ba_solve`` then computes
 each iteration with ``ops/ba_cpu`` (``csrc/ba_solve_cpu.c``) as XLA:CPU
 compiles it. Held here on test_torch_mono.py's 320x240 sequence (numpy seed
 42), from the JAX System's own init input:
 
-* the port's ``local_ba(_xla_init=True)`` gives the JAX System's output
+* the port's ``local_ba(_xla="init")`` gives the JAX System's output
   state bit for bit in every field;
 * every Gauss-Newton iteration, each on the port's own previous iterate,
   equals the JAX solve (``tests/xla_init_ba.ba_trace``, the same solve with
@@ -99,7 +99,7 @@ def _problem():
 
 def test_init_local_ba_equals_jax():
     _, _, _, _, _, want = _call()
-    state, chi2 = _local_ba(_xla_init=True)
+    state, chi2 = _local_ba(_xla="init")
     got = tms.to_numpy(state)
     assert len(want) == 38
     for f, v in want.items():
@@ -140,7 +140,7 @@ def test_iterations_equal_jax():
                  if not np.array_equal(got[k].numpy(), steps[k][it])]
         assert not apart, (it, apart)
     res = tba.ba_solve(tcam, prob, obs_grid=True, num_iters=8, cull_at_iters=(4,),
-                       _xla_init=True)
+                       _xla="init")
     for g, w in zip(res, final):
         assert np.array_equal(g.numpy(), w)
 
@@ -189,7 +189,7 @@ def test_policy_has_one_copy(monkeypatch):
     agree (poses and points within 1e-3, the detached observations on >=
     99% of slots), and both move away from the default policy's map."""
     def both():
-        c = tms.to_numpy(_local_ba(_xla_init=True)[0])
+        c = tms.to_numpy(_local_ba(_xla="init")[0])
         t = tms.to_numpy(_local_ba()[0])
         for f in ("kf_pose", "lm_pos"):
             np.testing.assert_allclose(c[f], t[f], rtol=1e-3, atol=1e-3, err_msg=f)

@@ -53,7 +53,7 @@ def test_loop_correction_at_1024_keyframes(rng):
     lm[N(state.lm_ref_kf) >= kf_cut] += T_t
     state = state._replace(kf_pose=T(pose), lm_pos=T(lm))
 
-    lc = LoopCloser(cam)
+    lc = LoopCloser(cam, device="cpu")
     kf_cur = K - 1
     # The Sim3 between the drifted revisit and keyframe 0, supplied as the
     # original test does.

@@ -132,7 +132,7 @@ def test_detect_consume_continuity_parity():
     np.fill_diagonal(W, 300)
     valid = np.ones(K, bool)
     valid[[7, 19]] = False
-    jl, tl = jloop.LoopCloser(JCAM), tloop.LoopCloser(TCAM)
+    jl, tl = jloop.LoopCloser(JCAM), tloop.LoopCloser(TCAM, device="cpu")
     fired = []
     for kf in (30, 31, 32, 33):
         sims = rng.uniform(0.0, 0.05, K).astype(np.float32)
@@ -146,6 +146,39 @@ def test_detect_consume_continuity_parity():
             [(sorted(c), n) for c, n in jl._continuity]
         fired.append(ct)
     assert fired[:2] == [None, None] and fired[2] in (2, 3, 4)
+
+
+def test_entry_points_default_to_the_card():
+    """``LoopCloser``, ``global_ba.prepare_from_arrays`` and
+    ``distributed_ba.shard_chain_pairs`` run on CUDA unless the caller asks
+    for another device, and raise without a card (nothing falls back to
+    the CPU); with ``device="cpu"`` they run here."""
+    from structure_plp_slam_tpu_torch.parallel import distributed_ba as tdba
+
+    kf_valid = np.ones(2, bool)
+    kp_valid = np.ones((2, 3), bool)
+    lm_idx = np.array([[0, 1, -1], [0, 1, 2]])
+    arrays = (kf_valid, kp_valid, lm_idx, np.ones(3, bool), np.zeros((2, 3, 2), np.float32),
+              np.full((2, 3), -1.0, np.float32), np.zeros((2, 3), np.int64),
+              np.ones(8, np.float32))
+    pairs = (np.array([0]), np.array([1]), np.array([[0, 0], [0, 1]]), 1, np.array([0]))
+    if torch.cuda.is_available():
+        assert tloop.LoopCloser(TCAM).device.type == "cuda"
+    else:
+        for make in (lambda: tloop.LoopCloser(TCAM),
+                     lambda: tgba.prepare_from_arrays(*arrays),
+                     lambda: tdba.shard_chain_pairs(*pairs)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    lc = tloop.LoopCloser(TCAM, device="cpu")
+    assert lc.device == torch.device("cpu")
+    W = np.full((4, 4), 60, np.int64)
+    packed = np.stack([W[3], np.full(4, 0.5), np.ones(4)], 1).astype(np.float32)
+    assert lc.detect_consume((HostCopy(torch.from_numpy(packed)), torch.from_numpy(W)), 3) is None
+    data = tgba.prepare_from_arrays(*arrays, device="cpu")
+    assert data.num_obs == 5
+    o1, o2, cpos = tdba.shard_chain_pairs(*pairs, device="cpu")
+    assert o1.device.type == "cpu" and int(o1[0]) == 0 and int(o2[0]) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +197,7 @@ def test_detect_dispatch_parity():
     js, arrays = jax_map()
     kf, _ = _loop_pair(arrays)
     packed_j, cov_j = jloop._detect_packed(js.state, kf, js.loop_closer.bow)
-    tl = tloop.LoopCloser(TCAM)
+    tl = tloop.LoopCloser(TCAM, device="cpu")
     copy, cov_t = tl.detect_dispatch(tms.from_numpy(arrays, "cpu"), kf)
     assert (copy.numpy() == np.asarray(packed_j)).all()
     assert (N(cov_t) == np.asarray(cov_j)).all()
@@ -198,7 +231,7 @@ def test_correct_parity():
     # real loop removes): the candidate seen 0.2 m off.
     t21 = (t21 + np.array([0.2, 0.0, 0.0], np.float32)).astype(np.float32)
     table = np.asarray(js.frontend.inv_sigma_sq)
-    jl, tl = jloop.LoopCloser(JCAM), tloop.LoopCloser(TCAM)
+    jl, tl = jloop.LoopCloser(JCAM), tloop.LoopCloser(TCAM, device="cpu")
     out_j = jl.correct(jst, kf_cur, cand, R21, t21, s21, table)
     out_t = tl.correct(tms.from_numpy(arrays, "cpu"), kf_cur, cand, R21, t21, s21,
                        torch.from_numpy(table))
@@ -232,7 +265,7 @@ def _bare_system(cam, state, next_kf):
     slam.pose = (torch.eye(3), torch.zeros(3))
     slam.vel = (torch.eye(3), torch.zeros(3))
     slam._pending_gba = None
-    slam.loop_closer = tloop.LoopCloser(cam)
+    slam.loop_closer = tloop.LoopCloser(cam, device="cpu")
     slam.gba_iters_per_chunk = 2
     slam.gba_num_chunks = 4
     slam._ind_cache = None

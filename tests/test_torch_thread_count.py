@@ -125,12 +125,12 @@ def test_init_ba_same_at_threads():
 
 
 def test_init_ba_xla_cpu_same_at_threads():
-    """The same BA as the System's init calls it (``_xla_init``: the C
+    """The same BA as the System's init calls it (``_xla="init"``: the C
     source's XLA:CPU iteration, ``ops/ba_cpu``)."""
     slam, state, _ = _init_map()
     _same_at_threads(lambda: mapper.local_ba(CAM, state, 1, slam.frontend.inv_sigma_sq,
                                              max_opt=4, max_fix=4, max_lms=4096,
-                                             _xla_init=True))
+                                             _xla="init"))
 
 
 def test_triangulate_with_neighbors_same_at_threads():

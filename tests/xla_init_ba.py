@@ -328,11 +328,13 @@ def _computations(text: str) -> dict:
     return comps
 
 
-def list_fused_multiply_adds(dump_dir: Path) -> None:
-    """For the init BA's Gauss-Newton loop body (the while body that factors
-    the [48, 48] camera system), print each kernel and the fused
-    multiply-adds of its object file."""
-    hlo = sorted(dump_dir.glob("*jit_local_ba.cpu_after_optimizations.txt"))[0]
+def list_fused_multiply_adds(dump_dir: Path, module: str = "jit_local_ba") -> None:
+    """For the BA's Gauss-Newton loop body (the while body that factors the
+    camera system) in the first dumped program named ``module`` (the init's
+    ``jit_local_ba``, the chain's ``jit__kf_chain``) that has one, print
+    each kernel and the fused multiply-adds of its object file."""
+    hlos = sorted(dump_dir.glob(f"*{module}.cpu_after_optimizations.txt"))
+    hlo = next(h for h in hlos if "lapack_spotrf" in h.read_text())
     prefix = hlo.name.split(".cpu_after")[0]
     comps = _computations(hlo.read_text())
     bodies = []
