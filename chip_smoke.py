@@ -90,7 +90,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    then profiled like phase 6 (over two frames) and one frame's host
    syncs counted;
    monocular + lines (gated at the JAX test's 320x240, reported at full
-   width; the JAX System's full-width result on the CPU is
+   width over 8 frames; the JAX System's full-width result on the CPU is
    tests/test_torch_plp_system.py's slow test's) and stereo + lines (TRACKING, >= 4 lines, > 60% near the
    planes, ATE < 0.06 m, > 200 landmarks), with the matcher checks of
    phases 4 and 7-11;
@@ -172,7 +172,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    relative; (f) chain_ba_checks: the monocular keyframe chain's local
    BA (640x480, seed 42, the first chain after the init, 32 window
    cameras) on the card (the PyTorch iteration) against the CPU's C
-   source: poses within 1e-4, points within 1e-3 m;
+   source: poses within 1e-4, points within 1e-3 m; (g)
+   rgbd_chain_ba_checks: the same for the main path's RGB-D System's
+   first chain (its stereo rows from the depth: the C source's 3-row
+   arithmetic), with (f)'s bounds and the card's sums in fixed orders;
 20. one JSON line with each path's numbers, one with the rectifier's, one
    with phase 19's, one with every kernel's numbers (launches per path
    added), the card line, and the result line ``{"ok": true, "device":
@@ -231,6 +234,7 @@ MONO_FULL_WIDTH_ATE = 0.2
 JAX_CPU_MONO_ATE = 0.115389
 PLP_FRAMES = 24    # phase 12 (a)
 LINE_FRAMES = 16   # phase 12 (b) and (c)
+REPORTED_LINE_FRAMES = 8  # phase 12 (b)'s reported full-width run
 PLP_KF_INTERVAL = 2
 # Phase 12 (a)'s count since the frontend's constants stay on the card
 # (61 before; PERF.md §5).
@@ -1767,13 +1771,15 @@ def linalg_checks(device="cuda"):
     return res
 
 
-@functools.lru_cache(maxsize=1)
-def _mono_ba_calls():
+@functools.lru_cache(maxsize=None)
+def _system_ba_calls(setup="mono"):
     """The monocular System's init BA and first keyframe chain BA on the CPU
     (640x480, 1000 keypoints over 8 levels, numpy seed 42, phase 7's
     capacities): ``{"init": ..., "chain": ...}``, each the ``mapper.local_ba``
     call's (camera, state, slot, inverse sigmas) and keywords, copied when
-    the call was made."""
+    the call was made. ``setup="rgbd"``: the main path's RGB-D System at
+    the same width and capacities (its camera, focal_x_baseline 40, and
+    ``make_sequence``'s 0.06 m a frame), whose first chain is the only call."""
     from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
     from structure_plp_slam_tpu_torch.config import Config
     from structure_plp_slam_tpu_torch.data import map_state
@@ -1782,9 +1788,14 @@ def _mono_ba_calls():
     from structure_plp_slam_tpu_torch.system import System
     from structure_plp_slam_tpu_torch.testing import synthetic_scene
 
-    cam = Camera(name="b", setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE,
-                 cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5, fps=30.0)
-    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12, step=0.08)
+    rgbd = setup == "rgbd"
+    depth = dict(focal_x_baseline=40.0, depth_threshold=40.0, depthmap_factor=1.0) if rgbd else {}
+    cam = Camera(name="b", setup=CameraSetup.RGBD if rgbd else CameraSetup.MONOCULAR,
+                 model=CameraModel.PERSPECTIVE, cols=640, rows=480, fx=525.0, fy=525.0,
+                 cx=319.5, cy=239.5, fps=30.0, **depth)
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12,
+                                              step=0.06 if rgbd else 0.08)
+    want = ("chain",) if rgbd else ("init", "chain")
     calls = {}
     local_ba = mapper.local_ba
 
@@ -1804,9 +1815,12 @@ def _mono_ba_calls():
     mapper.local_ba = record
     try:
         slam.startup()
-        for img, _, ts in frames:
-            slam.feed_monocular_frame(img, ts)
-            if len(calls) == 2:
+        for img, depth, ts in frames:
+            if rgbd:
+                slam.feed_RGBD_frame(img, depth, ts)
+            else:
+                slam.feed_monocular_frame(img, ts)
+            if len(calls) == len(want):
                 break
         slam.shutdown()
     finally:
@@ -1846,7 +1860,7 @@ def init_ba_checks(device="cuda"):
     two-view BA after its init (640x480, 1000 keypoints over 8 levels,
     numpy seed 42, the capacities of phase 7's full-width System): its
     first ``mapper.local_ba`` call's input, recorded on a CPU System
-    (``_mono_ba_calls``), through ``local_ba(..., _xla="init")`` on the card
+    (``_system_ba_calls``), through ``local_ba(..., _xla="init")`` on the card
     (the PyTorch iteration) and on the CPU (``ops/ba_cpu``'s C source):
     poses within 1e-4, points within 1e-3 m (the mapper tests' bounds), the
     detached observations equal on >= 99% of slots. (2) ``match_stereo`` on phase 8 (b)'s first
@@ -1858,7 +1872,7 @@ def init_ba_checks(device="cuda"):
     from structure_plp_slam_tpu_torch.ops.orb import OrbExtractor, OrbParams
 
     res = {}
-    calls = _mono_ba_calls()
+    calls = _system_ba_calls()
     if "init" not in calls:
         raise AssertionError("phase 19 (e): the monocular System ran no init BA")
     res["init_ba"] = _ba_card_vs_cpu("init_ba", calls["init"], device)
@@ -1889,17 +1903,45 @@ def init_ba_checks(device="cuda"):
 
 def chain_ba_checks(device="cuda"):
     """Phase 19 (f): the monocular keyframe chain's local BA on the card
-    against the CPU. The CPU System of phase 19 (e) (``_mono_ba_calls``)
+    against the CPU. The CPU System of phase 19 (e) (``_system_ba_calls``)
     runs on to its first keyframe chain after the init; that chain's
     ``mapper.local_ba`` call (``_xla="chain"``, C = 32 window cameras) runs
     again on the card (the PyTorch iteration) and on the CPU
     (``ops/ba_cpu``'s C source, XLA:CPU's arithmetic): poses within 1e-4,
     points within 1e-3 m, the detached observations equal on >= 99% of
     slots. Returns the largest differences."""
-    calls = _mono_ba_calls()
+    calls = _system_ba_calls()
     if "chain" not in calls:
         raise AssertionError("phase 19 (f): the monocular System ran no keyframe chain BA")
     return _ba_card_vs_cpu("chain_ba", calls["chain"], device)
+
+
+def rgbd_chain_ba_checks(device="cuda"):
+    """Phase 19 (g): the RGB-D keyframe chain's local BA on the card against
+    the CPU. The main path's RGB-D System (640x480, 1000 keypoints over 8
+    levels, numpy seed 42, 32 keyframes and 8192 landmarks, so a 32-camera
+    window) runs on the CPU to its first keyframe chain with a local BA
+    (``_system_ba_calls("rgbd")``); that call (``_xla="chain"``, stereo rows
+    from the depth) runs again on the card (the PyTorch iteration) and on
+    the CPU (``ops/ba_cpu``'s C source, XLA:CPU's 3-row arithmetic): poses
+    within 1e-4, points within 1e-3 m, the detached observations equal on
+    >= 99% of slots (phase 19 (f)'s bounds). The card's sums run in fixed
+    orders (deterministic()): this first window's BA moves points by up to
+    4 m in its 8 iterations, and follows the order of the card's segment
+    sums, which otherwise changes on every run (points 2.3e-4 to 1.4e-3 m
+    from the CPU's over four runs of one code; 2.7e-4 m on each of three
+    with fixed orders; PERF.md §6). Returns the largest differences
+    and the share of stereo rows in the window."""
+    calls = _system_ba_calls("rgbd")
+    if "chain" not in calls:
+        raise AssertionError("phase 19 (g): the RGB-D System ran no keyframe chain BA")
+    (_, state, slot, _), _ = calls["chain"]
+    with deterministic():
+        res = _ba_card_vs_cpu("rgbd_chain_ba", calls["chain"], device)
+    kp = state.kf_kp_valid[slot] & (state.kf_lm_idx[slot] >= 0)
+    res["stereo_share"] = float((state.kf_xr[slot][kp] >= 0).float().mean())
+    gate("rgbd_chain_ba", res["stereo_share"] > 0.5, f"stereo share {res['stereo_share']}")
+    return res
 
 
 def knob_checks(cam, slam, frames, device="cuda"):
@@ -2040,7 +2082,7 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
         max_kf_interval=3, fixed sums (deterministic()), the texture of
         test_mono_point_line_slam (numpy seed 42): gated at that test's
         320x240 configuration, and driven at the main path's width too
-        (mono_lines_full, reported: ROADMAP C17);
+        (mono_lines_full, 8 frames, reported: ROADMAP C17);
     (c) stereo_lines: stereo (0.1 m baseline), lines on, 16 frames,
         max_kf_interval=2, test_stereo_point_line_slam's texture (seed
         42): two-view line triangulation and the stereo endpoint depths
@@ -2137,10 +2179,11 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
     # holds the CPU run against the JAX System.
     small = dataclasses.replace(mono_cam, cols=320, rows=240, fx=260.0, fy=260.0, cx=159.5,
                                 cy=119.5)
-    for name, c, orb, caps, gated in (
-            ("mono_lines", small, OrbParams(max_num_keypts=600, num_levels=4), (32, 8192), True),
-            ("mono_lines_full", mono_cam, cfg.orb, capacities, False)):
-        frames, poses = render(c, LINE_FRAMES, 0.08, seed=42)
+    for name, c, orb, caps, gated, n_frames in (
+            ("mono_lines", small, OrbParams(max_num_keypts=600, num_levels=4), (32, 8192), True,
+             LINE_FRAMES),
+            ("mono_lines_full", mono_cam, cfg.orb, capacities, False, REPORTED_LINE_FRAMES)):
+        frames, poses = render(c, n_frames, 0.08, seed=42)
         slam = System(dataclasses.replace(cfg, camera=c, orb=orb), max_keyframes=caps[0],
                       max_landmarks=caps[1], with_lines=True, verbose_timing=True,
                       device="cuda", max_kf_interval=3, enable_loop_closing=False)
@@ -3034,7 +3077,9 @@ def main():
     ops["linalg"] = linalg_checks()
     ops["xla_cpu_routes"] = init_ba_checks()
     ops["chain_ba"] = chain_ba_checks()
-    phase_done("19")
+    phase_done("19 (a-f)")
+    ops["rgbd_chain_ba"] = rgbd_chain_ba_checks()
+    phase_done("19 (g)")
     for k in kernels:
         site = k["name"].split("@")[1]
         k["launches_by_path"] = {p: r["site_launches"][site] for p, r in runs.items()}

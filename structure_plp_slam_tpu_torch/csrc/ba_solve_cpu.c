@@ -1,11 +1,14 @@
-/* One Gauss-Newton iteration of the monocular local bundle adjustment
+/* One Gauss-Newton iteration of the local bundle adjustment
  * (models/bundle_adjustment.py ba_solve) on the CPU, computed as XLA:CPU
  * compiles the JAX package's: the two-view init's jitted mapper.local_ba (C =
  * 8 window cameras) and the keyframe chain's (system.py _kf_chain, C = 32),
  * each over M = 4096 landmarks and a dense [C, Ng] observation grid. Both
- * programs compile the iteration into the same kernels; what the vectorizer
- * makes of a kernel follows its shapes, and the caller passes those choices
- * (the Schur product's block length, the back-substitution's accumulators).
+ * programs compile the iteration into the same kernels, and so do the
+ * monocular, RGB-D and stereo Systems' chains (the camera's focal_x_baseline
+ * is a constant of the compile, 0 for a monocular camera); what the
+ * vectorizer makes of a kernel follows its shapes, and the caller passes
+ * those choices (the Schur product's block length, the back-substitution's
+ * accumulators).
  *
  * XLA fuses each element-wise expression into one kernel and LLVM turns a
  * product that feeds a sum into one fused multiply-add; the dots go to
@@ -15,6 +18,11 @@
  * comments name the expression of structure_plp_slam_tpu/models/
  * bundle_adjustment.py each block computes.
  *
+ *   the stereo row (an observation with obs_xr >= 0): its Jacobian's depth
+ *     entry fma(fxb, iz^2, (x -fx) iz^2), its chi2 term (r_xr^2) isg added to
+ *     the 2D one as fma(r_uv . r_uv, isg, term), and its term of each block
+ *     fused into the two-row sum, fma(Jc3 w_st, Jc3, Jc2w^T Jc2) and so on;
+ *     the monocular rows of the same program add the term with w_st = 0;
  *   the small dots (R X, the Jacobians, the per-observation blocks, Hll^-1
  *     times the back-substituted right-hand side): one fused multiply-add
  *     chain over the contracted index from its first, rounded product;
@@ -50,8 +58,8 @@
  * constants. The camera system's Cholesky solve runs between the two halves
  * of the iteration in ops/linalg.py (XLA's LAPACK routines).
  *
- * Pinhole projection of monocular observations only. x86-64 only: XLA:CPU's
- * rsqrt is the SSE rsqrtss instruction.
+ * Pinhole projection of monocular and stereo (RGB-D) observations. x86-64
+ * only: XLA:CPU's rsqrt is the SSE rsqrtss instruction.
  */
 #include <stdlib.h>
 
@@ -60,10 +68,10 @@
 #define WT_ACCS_MAX 4
 
 /* The camera and the solve's constants (models/bundle_adjustment.py
- * _ba_policy): fx, fy, cx, cy, damping, the 2D chi2 gate, max rotation, max
- * translation, max landmark step. */
+ * _ba_policy): fx, fy, cx, cy, focal_x_baseline, damping, the 2D and 3D chi2
+ * gates, max rotation, max translation, max landmark step. */
 typedef struct {
-  float fx, fy, cx, cy, damping, chi2_2d, max_rot, max_trans, max_lm;
+  float fx, fy, cx, cy, fxb, damping, chi2_2d, chi2_3d, max_rot, max_trans, max_lm;
 } cam_t;
 
 /* sum_k a[k * sa] * b[k * sb]: the first product rounded, then one chain. */
@@ -78,13 +86,18 @@ static void cam_point(const float* P, const float* X, float* pc) {
   for (int i = 0; i < 3; i++) pc[i] = chain(P + 4 * i, 1, X, 1, 3) + P[4 * i + 3];
 }
 
-/* r_uv and the chi2 of one observation (_project_residuals, _obs_chi2). */
-static float residual_chi2(const cam_t* c, const float* pc, const float* uv, float isg,
-                           float* d) {
+/* r_uv, r_xr and the chi2 of one observation (_project_residuals,
+ * _obs_chi2): the stereo term where xr >= 0, the 2D sum's product with isg
+ * fused into it. */
+static float residual_chi2(const cam_t* c, const float* pc, const float* uv, float xr,
+                           float isg, float* d) {
   float sz = safe_z(pc[2]);
-  d[0] = ((pc[0] * c->fx) / sz + c->cx) - uv[0];
+  float u = (pc[0] * c->fx) / sz + c->cx;
+  d[0] = u - uv[0];
   d[1] = ((pc[1] * c->fy) / sz + c->cy) - uv[1];
-  return fmaf(d[1], d[1], d[0] * d[0]) * isg;
+  d[2] = (u - c->fxb / sz) - xr;
+  float st = xr >= 0.0f ? (d[2] * d[2]) * isg : 0.0f;
+  return fmaf(fmaf(d[1], d[1], d[0] * d[0]), isg, st);
 }
 
 /* The Schur product S_red[(c,i), (d,j)] = sum_K WH[m,c,i,k] W[m,d,j,k] over
@@ -151,13 +164,15 @@ static float wt_dot(const float* w, int j, const float* dx, int D, int wt_accs,
 }
 
 /* Per-observation trace layout (floats): pc [3], r_uv [2], chi2, w, Jc2 [12],
- * Jl2 [6], Hcc_o [36], Hll_o [9], Hcl_o [18], bc_o [6], bl_o [3]. */
-#define OBS_TRACE 97
+ * Jl2 [6], Hcc_o [36], Hll_o [9], Hcl_o [18], bc_o [6], bl_o [3], r_xr, Jc3
+ * [6], Jl3 [3]. */
+#define OBS_TRACE 107
 
 /* The normal equations and their Schur complement (ba_solve's iteration up
  * to the camera solve). Inputs: camf (cam_t), the window's poses P [C, 3, 4]
  * and points X [M, 3], the observation grid (obs_lm [C * Ng], uv [C * Ng, 2],
- * isg, live), the free cameras; kblock, the Schur product's block length.
+ * xr [C * Ng] (< 0: monocular), isg, live), the free cameras; kblock, the
+ * Schur product's block length.
  * Outputs: S [6C, 6C] and rhs [6C] of the camera system, and what the back-
  * substitution needs: Hll^-1 [M, 3, 3], W [M, C, 6, 3], bl [M, 3]; gblock,
  * the grid contraction's run length over a camera row. With
@@ -165,7 +180,7 @@ static float wt_dot(const float* w, int j, const float* dx, int D, int wt_accs,
  * and W Hll^-1 [M, C, 6, 3]; with cam_tr, Hcc [C, 36], bc [C, 6] and the
  * Schur product [6C, 6C]. Returns 0, or 2 on allocation failure. */
 int ba_normal_cpu(int C, int M, int Ng, const float* camf, const float* P, const float* X,
-                  const int64_t* obs_lm, const float* uv, const float* isg,
+                  const int64_t* obs_lm, const float* uv, const float* xr, const float* isg,
                   const uint8_t* live, const uint8_t* freecam, int kblock, int gblock, float* S,
                   float* rhs, float* Hinv, float* W, float* bl, float* obs_tr, float* lm_tr,
                   float* cam_tr) {
@@ -199,42 +214,56 @@ int ba_normal_cpu(int C, int M, int Ng, const float* camf, const float* P, const
     int cam = o / Ng;
     int64_t m = obs_lm[o];
     const float* Pc = P + 12 * cam;
-    float pc[3], d[2];
+    float pc[3], d[3];
     cam_point(Pc, X + 3 * m, pc);
-    float chi2 = residual_chi2(c, pc, uv + 2 * o, isg[o], d);
+    const int stereo = xr[o] >= 0.0f;
+    float chi2 = residual_chi2(c, pc, uv + 2 * o, xr[o], isg[o], d);
     /* huber_weight(chi2, delta_sq) * inv_sigma_sq, gated by liveness and
-     * cheirality. */
-    float hw = fmin_xla(sqrtf(c->chi2_2d / fmax_xla(chi2, 1e-12f)), 1.0f);
+     * cheirality; w_st, the stereo row's weight. */
+    float hw = fmin_xla(sqrtf((stereo ? c->chi2_3d : c->chi2_2d) / fmax_xla(chi2, 1e-12f)), 1.0f);
     float w = live[o] ? hw * isg[o] : 0.0f;
     if (!(pc[2] > 1e-6f)) w = 0.0f;
+    float w_st = stereo ? w : 0.0f;
     float iz = 1.0f / safe_z(pc[2]), iz2 = iz * iz;
     float Juv[6] = {c->fx * iz, 0.0f, (pc[0] * -c->fx) * iz2,
                     0.0f, c->fy * iz, (pc[1] * -c->fy) * iz2};
+    float Jxr[3] = {c->fx * iz, 0.0f, fmaf(c->fxb, iz2, (pc[0] * -c->fx) * iz2)};
     /* d pc / d xi = [I | -hat(pc)]. */
     float dpc[18] = {1.0f, 0.0f, 0.0f, 0.0f, pc[2], -pc[1],
                      0.0f, 1.0f, 0.0f, -pc[2], 0.0f, pc[0],
                      0.0f, 0.0f, 1.0f, pc[1], -pc[0], 0.0f};
-    float Jc2[12], Jl2[6], Jc2w[12], Jl2w[6];
+    float Jc2[12], Jl2[6], Jc2w[12], Jl2w[6], Jc3[6], Jl3[3], Jc3w[6], Jl3w[3];
     for (int r = 0; r < 2; r++) {
       for (int j = 0; j < 6; j++) Jc2[6 * r + j] = chain(Juv + 3 * r, 1, dpc + j, 6, 3);
       for (int j = 0; j < 3; j++) Jl2[3 * r + j] = chain(Juv + 3 * r, 1, Pc + j, 4, 3);
     }
+    for (int j = 0; j < 6; j++) Jc3[j] = chain(Jxr, 1, dpc + j, 6, 3);
+    for (int j = 0; j < 3; j++) Jl3[j] = chain(Jxr, 1, Pc + j, 4, 3);
     for (int k = 0; k < 12; k++) Jc2w[k] = Jc2[k] * w;
     for (int k = 0; k < 6; k++) Jl2w[k] = Jl2[k] * w;
-    /* The blocks, each a chain over the two residual rows; the stereo terms
-     * add zeros (monocular observations). */
+    for (int k = 0; k < 6; k++) Jc3w[k] = Jc3[k] * w_st;
+    for (int k = 0; k < 3; k++) Jl3w[k] = Jl3[k] * w_st;
+    const float wr = w_st * d[2];
+    /* The blocks: a chain over the two residual rows, the stereo row's term
+     * fused onto it. */
     float* hcc = Hcc_o + (size_t)o * 36;
     float hll[9], hcl[18], bco[6], blo[3];
     for (int i = 0; i < 6; i++)
-      for (int j = 0; j < 6; j++) hcc[6 * i + j] = fmaf(Jc2w[6 + i], Jc2[6 + j], Jc2w[i] * Jc2[j]);
+      for (int j = 0; j < 6; j++)
+        hcc[6 * i + j] = fmaf(Jc3w[i], Jc3[j], fmaf(Jc2w[6 + i], Jc2[6 + j], Jc2w[i] * Jc2[j]));
     for (int i = 0; i < 3; i++)
-      for (int j = 0; j < 3; j++) hll[3 * i + j] = fmaf(Jl2w[3 + i], Jl2[3 + j], Jl2w[i] * Jl2[j]);
+      for (int j = 0; j < 3; j++)
+        hll[3 * i + j] = fmaf(Jl3w[i], Jl3[j], fmaf(Jl2w[3 + i], Jl2[3 + j], Jl2w[i] * Jl2[j]));
     for (int i = 0; i < 6; i++)
-      for (int j = 0; j < 3; j++) hcl[3 * i + j] = fmaf(Jc2w[6 + i], Jl2[3 + j], Jc2w[i] * Jl2[j]);
-    for (int i = 0; i < 6; i++) bco[i] = -fmaf(Jc2w[6 + i], d[1], Jc2w[i] * d[0]);
-    for (int i = 0; i < 3; i++) blo[i] = -fmaf(Jl2w[3 + i], d[1], Jl2w[i] * d[0]);
+      for (int j = 0; j < 3; j++)
+        hcl[3 * i + j] = fmaf(Jc3w[i], Jl3[j], fmaf(Jc2w[6 + i], Jl2[3 + j], Jc2w[i] * Jl2[j]));
+    for (int i = 0; i < 6; i++)
+      bco[i] = -fmaf(Jc3[i], wr, fmaf(Jc2w[6 + i], d[1], Jc2w[i] * d[0]));
+    for (int i = 0; i < 3; i++)
+      blo[i] = -fmaf(Jl3[i], wr, fmaf(Jl2w[3 + i], d[1], Jl2w[i] * d[0]));
     memcpy(bc_o + (size_t)o * 6, bco, sizeof bco);
-    /* The one-hot contraction into (landmark, camera) bins. */
+    /* The one-hot contraction into (landmark, camera) bins; an observation
+     * of weight 0 (and so w_st 0) adds only zeros. */
     if (w != 0.0f) {
       float v[30];
       memcpy(v, hll, sizeof hll);
@@ -283,7 +312,8 @@ int ba_normal_cpu(int C, int M, int Ng, const float* camf, const float* P, const
       memcpy(t + 7, Jc2, sizeof Jc2); memcpy(t + 19, Jl2, sizeof Jl2);
       memcpy(t + 25, hcc, 36 * sizeof(float)); memcpy(t + 61, hll, sizeof hll);
       memcpy(t + 70, hcl, sizeof hcl); memcpy(t + 88, bco, sizeof bco);
-      memcpy(t + 94, blo, sizeof blo);
+      memcpy(t + 94, blo, sizeof blo); t[97] = d[2];
+      memcpy(t + 98, Jc3, sizeof Jc3); memcpy(t + 104, Jl3, sizeof Jl3);
     }
   }
   /* The grid sums per camera. */
@@ -477,11 +507,12 @@ void ba_orthonormalize_cpu(int C, const float* P, float* Pn) {
 
 /* The chi2 of every observation (ba_solve's cull and final inlier test). */
 void ba_chi2_cpu(int C, int Ng, const float* camf, const float* P, const float* X,
-                 const int64_t* obs_lm, const float* uv, const float* isg, float* chi2) {
+                 const int64_t* obs_lm, const float* uv, const float* xr, const float* isg,
+                 float* chi2) {
   const cam_t* c = (const cam_t*)camf;
   for (int o = 0; o < C * Ng; o++) {
-    float pc[3], d[2];
+    float pc[3], d[3];
     cam_point(P + 12 * (o / Ng), X + 3 * obs_lm[o], pc);
-    chi2[o] = residual_chi2(c, pc, uv + 2 * o, isg[o], d);
+    chi2[o] = residual_chi2(c, pc, uv + 2 * o, xr[o], isg[o], d);
   }
 }

@@ -22,9 +22,10 @@ distances to the projected line are the residuals
 come from ``torch.func``; the line blocks are eliminated like the point
 blocks.
 
-The monocular BA of the System's two-view init and of its keyframe chain
-(``_xla="init"`` / ``"chain"``, passed by those two call sites only)
-computes each iteration on the CPU as XLA:CPU compiles the JAX package's
+The BA of the System's two-view init and of its keyframe chain (``_xla=
+"init"`` / ``"chain"``, passed by those two call sites only; monocular,
+RGB-D and stereo) computes each iteration on the CPU as XLA:CPU compiles the
+JAX package's
 (``ops/ba_cpu``, a C source); the loop and its policy (iterations, damping,
 chi2 gates, step limits, the cull schedule) stay here and ``_ba_policy``
 passes the constants. Every other call, and the card, runs the PyTorch
@@ -159,8 +160,9 @@ _MAX_ROT, _MAX_TRANS, _MAX_LM_STEP = 0.3, 5.0, 5.0
 
 def _ba_policy(damping: float) -> tuple:
     """The solve's constants in the order ``ops/ba_cpu`` passes them to its C
-    source: the damping, the monocular chi2 gate, the step limits."""
-    return (damping, robust.CHI2_2D, _MAX_ROT, _MAX_TRANS, _MAX_LM_STEP)
+    source: the damping, the monocular and stereo chi2 gates, the step
+    limits."""
+    return (damping, robust.CHI2_2D, robust.CHI2_3D, _MAX_ROT, _MAX_TRANS, _MAX_LM_STEP)
 
 
 def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: int = 15,

@@ -1,6 +1,7 @@
-"""The monocular local BA iteration on the CPU, as XLA:CPU computes the JAX
-package's (``csrc/ba_solve_cpu.c``), in the two programs that run it: the
-two-view init (``"init"``) and the keyframe chain (``"chain"``).
+"""The local BA iteration on the CPU, as XLA:CPU computes the JAX package's
+(``csrc/ba_solve_cpu.c``), in the two programs that run it: the two-view init
+(``"init"``) and the keyframe chain (``"chain"``) of the monocular, RGB-D and
+stereo Systems.
 
 XLA:CPU compiles the JAX System's init BA (the jitted ``mapper.local_ba``
 over the two init keyframes: C = 8 window cameras) and the keyframe chain's
@@ -10,9 +11,11 @@ multiply-adds and summation orders follow each kernel; the C source repeats
 one Gauss-Newton iteration of that compile operation for operation (``python
 -m tests.xla_init_ba`` and ``python -m tests.xla_chain_ba`` dump the programs
 and measure the Schur product's blocks). Both programs compile the iteration
-into the same kernels; where the vectorizer lays a kernel out by its shapes,
-the layout is a table keyed by the shape (``_SCHUR_BLOCKS``, ``_GRID_BLOCKS``,
-``_UPDATE_LAYOUT``).
+into the same kernels, and the monocular, RGB-D and stereo chains compile into
+the same ones too (the camera's ``focal_x_baseline`` is a constant of the
+compile; ``python -m tests.xla_chain_ba --dump DIR --setup rgbd`` lists them);
+where the vectorizer lays a kernel out by its shapes, the layout is a table
+keyed by the shape (``_SCHUR_BLOCKS``, ``_GRID_BLOCKS``, ``_UPDATE_LAYOUT``).
 ``models/bundle_adjustment.ba_solve`` keeps the solver's loop and policy and
 calls, per iteration, :func:`normal_equations`, the camera solve
 (``ops/linalg``: XLA's LAPACK routines) and :func:`update`; its cull and its
@@ -21,8 +24,9 @@ final inlier test take :func:`obs_chi2`.
 The source is built with the host C compiler at first use into
 ``build/kernels/`` and loaded with ctypes (``utils/host_c``); it builds on
 x86-64 only (XLA:CPU's reciprocal root is the SSE ``rsqrtss`` instruction).
-It serves f32 CPU tensors of monocular observations and pinhole-projecting
-cameras (perspective, fisheye).
+It serves f32 CPU tensors of pinhole-projecting cameras (perspective,
+fisheye), monocular and stereo observations (an RGB-D keypoint with depth has
+a stereo row, ``obs_xr >= 0``), and no line landmarks.
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ _GRID_BLOCKS = {(8, 640, 4096): 320, (32, 640, 4096): 320, (8, 616, 4096): 312,
 PROGRAMS = ("init", "chain")
 _UNMEASURED: set = set()
 # Floats per observation in the trace (csrc/ba_solve_cpu.c OBS_TRACE).
-_OBS_TRACE = 97
+_OBS_TRACE = 107
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -135,13 +139,13 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = host_c.load(SOURCE)
-            lib.ba_normal_cpu.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [
+            lib.ba_normal_cpu.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [
                 ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
             lib.ba_normal_cpu.restype = ctypes.c_int
             lib.ba_update_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
             lib.ba_update_cpu.restype = ctypes.c_int
-            lib.ba_chi2_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+            lib.ba_chi2_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
             lib.ba_chi2_cpu.restype = None
             lib.ba_orthonormalize_cpu.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
             lib.ba_orthonormalize_cpu.restype = None
@@ -166,19 +170,17 @@ def serves(camera, prob, lines) -> bool:
 
 def check(prob) -> None:
     """Raise unless the observations of a problem that :func:`serves` takes
-    are what the programs' compile solves: monocular, on a dense [C, Ng] grid
-    (``obs_cam[o] == o // Ng``)."""
+    are what the programs' compile solves: a dense [C, Ng] grid
+    (``obs_cam[o] == o // Ng``), monocular and stereo rows alike."""
     C, O = prob.cam_pose.shape[0], prob.obs_cam.shape[0]
     grid = torch.arange(C)[:, None].expand(C, O // C).reshape(-1)
     if O % C or not torch.equal(prob.obs_cam, grid):
         raise ValueError("the XLA:CPU BA iteration needs the observations as a [C, O/C] grid")
-    if bool(torch.any(prob.obs_xr >= 0)):
-        raise ValueError("the XLA:CPU BA iteration serves monocular observations only")
 
 
 def _camf(camera, policy):
-    return torch.tensor([camera.fx, camera.fy, camera.cx, camera.cy, *policy],
-                        dtype=torch.float32)
+    return torch.tensor([camera.fx, camera.fy, camera.cx, camera.cy, camera.focal_x_baseline,
+                         *policy], dtype=torch.float32)
 
 
 def normal_equations(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: tuple,
@@ -188,8 +190,8 @@ def normal_equations(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: 
     ``policy`` is ``models/bundle_adjustment._ba_policy``. With ``trace``
     also a dict of the per-observation values (``pc``, ``r_uv``, ``chi2``,
     ``w``, ``Jc2``, ``Jl2``, ``Hcc_o``, ``Hll_o``, ``Hcl_o``, ``bc_o``,
-    ``bl_o``), ``Hll``, ``WHinv``, ``Hcc``, ``bc`` and the Schur product
-    ``S_red [6C, 6C]``."""
+    ``bl_o``, ``r_xr``, ``Jc3``, ``Jl3``), ``Hll``, ``WHinv``, ``Hcc``, ``bc``
+    and the Schur product ``S_red [6C, 6C]``."""
     C, M = cam_pose.shape[0], lm_pos.shape[0]
     O = prob.obs_lm.shape[0]
     D = 6 * C
@@ -203,8 +205,8 @@ def normal_equations(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: 
     lm_tr = torch.empty((M * 9 + M * C * 18,), dtype=f32) if trace else None
     cam_tr = torch.empty((C * 42 + D * D,), dtype=f32) if trace else None
     ins = [_camf(camera, policy), _c(cam_pose), _c(lm_pos), _c(prob.obs_lm, torch.int64),
-           _c(prob.obs_uv), _c(prob.obs_inv_sigma_sq), _c(obs_live, torch.uint8),
-           _c(free, torch.uint8)]
+           _c(prob.obs_uv), _c(prob.obs_xr), _c(prob.obs_inv_sigma_sq),
+           _c(obs_live, torch.uint8), _c(free, torch.uint8)]
     p = host_c.ptr
     rc = _load().ba_normal_cpu(C, M, O // C, *(p(x) for x in ins), schur_block(D, 3 * M),
                                grid_block(C, O // C, M), p(S), p(rhs), p(Hinv), p(W), p(bl),
@@ -215,7 +217,8 @@ def normal_equations(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: 
     if not trace:
         return out
     cols = dict(pc=(0, 3), r_uv=(3, 5), chi2=(5, 6), w=(6, 7), Jc2=(7, 19), Jl2=(19, 25),
-                Hcc_o=(25, 61), Hll_o=(61, 70), Hcl_o=(70, 88), bc_o=(88, 94), bl_o=(94, 97))
+                Hcc_o=(25, 61), Hll_o=(61, 70), Hcl_o=(70, 88), bc_o=(88, 94), bl_o=(94, 97),
+                r_xr=(97, 98), Jc3=(98, 104), Jl3=(104, 107))
     shapes = dict(Jc2=(2, 6), Jl2=(2, 3), Hcc_o=(6, 6), Hll_o=(3, 3), Hcl_o=(6, 3))
     steps = {}
     for k, (a, b) in cols.items():
@@ -274,7 +277,7 @@ def obs_chi2(camera, prob, cam_pose, lm_pos, *, policy: tuple):
     C, O = cam_pose.shape[0], prob.obs_lm.shape[0]
     chi2 = torch.empty((O,), dtype=torch.float32)
     ins = [_camf(camera, policy), _c(cam_pose), _c(lm_pos), _c(prob.obs_lm, torch.int64),
-           _c(prob.obs_uv), _c(prob.obs_inv_sigma_sq)]
+           _c(prob.obs_uv), _c(prob.obs_xr), _c(prob.obs_inv_sigma_sq)]
     p = host_c.ptr
     _load().ba_chi2_cpu(C, O // C, *(p(x) for x in ins), p(chi2))
     return chi2

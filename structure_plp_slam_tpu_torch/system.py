@@ -379,12 +379,9 @@ def _kf_chain(camera, st, slot, pose, ts, feats, kp_lm, next_lm, inv_sigma_sq, i
     if do_ba:
         if with_lines:
             st = line_mapper.refresh_lines(camera, st)
-        # A monocular chain's BA is, on the CPU, XLA:CPU's (ops/ba_cpu); the
-        # stereo and RGB-D chains' take the PyTorch iteration.
-        mono = camera.setup is CameraSetup.MONOCULAR
+        # The chain's BA is, on the CPU, XLA:CPU's (ops/ba_cpu).
         st, _, ba_cams = mapper.local_ba(camera, st, slot, inv_sigma_sq, with_lines=with_lines,
-                                         ind=ind, return_cams=True,
-                                         _xla="chain" if mono else None)
+                                         ind=ind, return_cams=True, _xla="chain")
         ind = ms.indicator_update_rows(ind, st, ba_cams)
     if do_cull_kf:
         st, _ = mapper.cull_keyframes(st, slot, ind=ind)

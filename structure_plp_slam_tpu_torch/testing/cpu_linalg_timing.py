@@ -38,6 +38,10 @@ runs on the CPU. Prints one JSON object per measurement, the median of
 * ``kf_chain_640x480``: that chain whole (``system._kf_chain``: insert,
   cull, triangulate, fuse, the local BA, the statistics; XLA:CPU's
   arithmetic on the CPU), recorded once and repeated on its input;
+* ``chain_ba_rgbd_640x480`` and ``kf_chain_rgbd_640x480``: the same two for
+  the main path's RGB-D System (focal_x_baseline 40, numpy seed 42's
+  sequence at 0.06 m a frame), whose window's observations carry stereo
+  rows from the depth (the C source's 3-row arithmetic on the CPU);
 * ``match_stereo_640x480``, ``match_stereo_752x480`` and
   ``match_stereo_1241x376``: the stereo frontend's ``match_stereo`` on one
   rendered pair (numpy seed 0) at the 640x480 main path's camera (0.1 m
@@ -182,13 +186,17 @@ def init_ba_640(repeats: int) -> dict:
     return dict(name="init_ba_640x480", seconds=statistics.median(per_run[1:]))
 
 
-def _first_chain_call(owner, name: str, want):
+def _first_chain_call(owner, name: str, want, rgbd: bool = False):
     """The first call of ``owner.name`` that ``want(kwargs)`` accepts, in
     the monocular System at 640x480 (1000 keypoints over 8 levels, numpy
-    seed 42's sequence, 32 keyframes): ``(the function, args, kwargs)``."""
-    cam = Camera(name="b", setup=CameraSetup.MONOCULAR, model=CameraModel.PERSPECTIVE,
-                 cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5, fps=30.0)
-    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12, step=0.08)
+    seed 42's sequence, 32 keyframes), or with ``rgbd`` in the RGB-D System
+    of the main path's camera: ``(the function, args, kwargs)``."""
+    depth = dict(focal_x_baseline=40.0, depth_threshold=40.0, depthmap_factor=1.0) if rgbd else {}
+    cam = Camera(name="b", setup=CameraSetup.RGBD if rgbd else CameraSetup.MONOCULAR,
+                 model=CameraModel.PERSPECTIVE, cols=640, rows=480, fx=525.0, fy=525.0,
+                 cx=319.5, cy=239.5, fps=30.0, **depth)
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12,
+                                              step=0.06 if rgbd else 0.08)
     fn = getattr(owner, name)
     calls = []
 
@@ -204,8 +212,11 @@ def _first_chain_call(owner, name: str, want):
             device="cpu", enable_loop_closing=False, max_keyframes=32, max_landmarks=8192,
             max_kf_interval=3)
         slam.startup()
-        for img, _, ts in frames:
-            slam.feed_monocular_frame(img, ts)
+        for img, depth, ts in frames:
+            if rgbd:
+                slam.feed_RGBD_frame(img, depth, ts)
+            else:
+                slam.feed_monocular_frame(img, ts)
             if calls:
                 break
         slam.shutdown()
@@ -225,6 +236,20 @@ def chain_ba_640(repeats: int) -> dict:
 def kf_chain_640(repeats: int) -> dict:
     chain, a, k = _first_chain_call(system_mod, "_kf_chain", lambda k: k.get("do_ba"))
     return dict(name="kf_chain_640x480", slot=int(a[2]),
+                seconds=_median_seconds(lambda: chain(*a, **k), repeats))
+
+
+def chain_ba_rgbd(repeats: int) -> dict:
+    local_ba, a, k = _first_chain_call(system_mod.mapper, "local_ba",
+                                       lambda k: k.get("return_cams"), rgbd=True)
+    return dict(name="chain_ba_rgbd_640x480", slot=int(a[2]),
+                seconds=_median_seconds(lambda: local_ba(*a, **k), repeats))
+
+
+def kf_chain_rgbd(repeats: int) -> dict:
+    chain, a, k = _first_chain_call(system_mod, "_kf_chain", lambda k: k.get("do_ba"),
+                                    rgbd=True)
+    return dict(name="kf_chain_rgbd_640x480", slot=int(a[2]),
                 seconds=_median_seconds(lambda: chain(*a, **k), repeats))
 
 
@@ -290,7 +315,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     torch.set_num_threads(args.threads)
     for measure in (global_ba_iter, mono_init, track_frame_320, track_frame_640, init_ba_640,
-                    chain_ba_640, kf_chain_640, match_stereo_640, match_stereo_752,
+                    chain_ba_640, kf_chain_640, chain_ba_rgbd, kf_chain_rgbd,
+                    match_stereo_640, match_stereo_752,
                     match_stereo_1241):
         if args.only and measure.__name__ not in args.only:
             continue

@@ -255,3 +255,30 @@ def test_stereo_system_matches_jax(name):
         assert dt < 1e-3 and dr < 1e-3, f"frame {i}: {dt:.2e} m, {dr:.2e} rad"
     assert ts.num_keyframes == js.num_keyframes >= 2
     assert ts.tracking_state.value == js.tracking_state.value == "Tracking"
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,n", [("vga", 40), ("euroc", 24)])
+def test_stereo_system_bit_equal_at_32_keyframes(name, n):
+    """Both Systems on ``n`` pairs at the camera (the 640x480 main path's
+    stereo camera, EuRoC's) with 32 keyframes, so that every keyframe
+    chain's local BA has the 32-camera window of ``ops/ba_cpu``'s tables
+    (ROADMAP C18): every frame's pose, the frame trajectory and every map
+    field bit-equal."""
+    jcam, tcam = _cams(name)
+    pairs, _ = _pairs(name, n)
+    sizes = dict(max_keyframes=32, max_landmarks=8192, enable_loop_closing=False,
+                 max_kf_interval=2)
+    js = JSystem(JConfig(camera=jcam, orb=_orb(name, jorb), raw={}), **sizes)
+    ts = System(Config(camera=tcam, orb=_orb(name, torb), raw={}), device="cpu", **sizes)
+    jposes, tposes = _run(js, pairs), _run(ts, pairs)
+    for i, (a, b) in enumerate(zip(jposes, tposes)):
+        assert (a is None) == (b is None), i
+        assert a is None or np.array_equal(a, b), i
+    jt, tt = js.frame_trajectory(), ts.frame_trajectory()
+    assert len(jt) == len(tt) == n
+    assert all(np.array_equal(np.asarray(a[1]), np.asarray(b[1])) for a, b in zip(jt, tt))
+    for f in js.state._fields:
+        a, b = np.asarray(getattr(js.state, f)), getattr(ts.state, f).numpy()
+        assert np.array_equal(a.view(np.int32) if a.dtype == np.uint32 else a, b), f
+    assert ts.num_keyframes == js.num_keyframes >= 10

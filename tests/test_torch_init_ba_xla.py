@@ -212,7 +212,8 @@ def test_policy_has_one_copy(monkeypatch):
 def test_refused():
     """The C source serves f32 CPU tensors of a pinhole camera without lines
     (``ba_solve`` runs the PyTorch iteration otherwise) and raises on
-    observations off the monocular grid."""
+    observations off the grid; stereo rows pass (their arithmetic:
+    tests/test_torch_chain_ba_xla_rgbd.py)."""
     _, tcam, _, _, _, _ = _call()
     prob, _ = _problem()
     assert ba_cpu.serves(tcam, prob, None)
@@ -222,7 +223,6 @@ def test_refused():
     assert not ba_cpu.serves(tcam, prob, object())
     eq = dataclasses.replace(tcam, model=CameraModel.EQUIRECTANGULAR)
     assert not ba_cpu.serves(eq, prob, None)
-    with pytest.raises(ValueError, match="monocular"):
-        ba_cpu.check(prob._replace(obs_xr=torch.ones_like(prob.obs_xr)))
+    ba_cpu.check(prob._replace(obs_xr=torch.ones_like(prob.obs_xr)))
     with pytest.raises(ValueError, match="grid"):
         ba_cpu.check(prob._replace(obs_cam=prob.obs_cam.flip(0)))

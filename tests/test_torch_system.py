@@ -407,3 +407,31 @@ def test_rgbd_sequence_ate(rng):
     assert ate < 0.05, f"ATE {ate}"
     assert slam.num_keyframes >= 2
     assert slam.num_landmarks > 200
+
+
+@pytest.mark.slow
+def test_rgbd_main_path_matches_jax():
+    """ROADMAP's main path on both Systems: test_rgbd_sequence_ate's 16
+    frames (320x240, numpy seed 42, 32 keyframes / 8192 landmarks, loop
+    closing off). With the frontend, the tracker's pose solve and the
+    keyframe chain (its local BA's stereo rows included) computing
+    XLA:CPU's arithmetic on the CPU, every frame's pose and the final
+    trajectory are bit-equal to the JAX System's, and so is the map."""
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), TCAM, num_frames=16)
+    sizes = dict(max_keyframes=32, max_landmarks=8192, enable_loop_closing=False)
+    js = JSystem(JConfig(camera=JCAM, orb=JOrb(max_num_keypts=600, num_levels=4), raw={}),
+                 **sizes)
+    ts = System(_cfg(), device="cpu", **sizes)
+    jposes, tposes = _run(js, frames), _run(ts, frames)
+    assert len(jposes) == len(tposes) == 16
+    for i, (a, b) in enumerate(zip(jposes, tposes)):
+        assert (a is None) == (b is None), i
+        assert a is None or np.array_equal(a, b), i
+    jt, tt = js.frame_trajectory(), ts.frame_trajectory()
+    assert len(jt) == len(tt) == 16
+    assert all(np.array_equal(np.asarray(a[1]), np.asarray(b[1])) for a, b in zip(jt, tt))
+    for f in js.state._fields:
+        a, b = np.asarray(getattr(js.state, f)), getattr(ts.state, f).numpy()
+        assert np.array_equal(a.view(np.int32) if a.dtype == np.uint32 else a, b), f
+    assert ts.num_keyframes == js.num_keyframes >= 2
+    assert ts.tracking_state is TrackerState.TRACKING

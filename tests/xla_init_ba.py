@@ -239,7 +239,8 @@ def _trace_fn(camera, num_iters: int, cull_at_iters: tuple, damping: float):
             for ci in cull_at_iters:
                 do_cull = do_cull | (it == ci)
             obs_live = jax.lax.cond(do_cull, cull, lambda m: m, obs_live)
-            step = dict(pc=pc, r_uv=r_uv, chi2=chi2, w=w, Jc2=Jc2, Jl2=Jl2, Hcc_o=Hcc_o,
+            step = dict(pc=pc, r_uv=r_uv, r_xr=r_xr, chi2=chi2, w=w, Jc2=Jc2, Jl2=Jl2, Jc3=Jc3,
+                        Jl3=Jl3, Hcc_o=Hcc_o,
                         Hll_o=Hll_o, Hcl_o=Hcl_o, bc_o=bc_o, bl_o=bl_o, Hcc=Hcc, Hll=Hll, bc=bc,
                         bl=bl, W=W, Hll_inv=Hll_inv, WHinv=WHinv,
                         S_red=S_red.transpose(0, 2, 1, 3).reshape(6 * C, 6 * C), S=S_dense,
@@ -264,8 +265,9 @@ def ba_trace(camera, prob, *, num_iters: int = 8, cull_at_iters: tuple = (4,),
     """The JAX package's ``ba_solve(obs_grid=True)`` on the JAX ``BAProblem``
     ``prob`` with every Gauss-Newton iteration's values: ``((cam_pose,
     lm_pos, inliers, chi2), steps)`` as numpy, ``steps`` holding the
-    per-observation ``pc``, ``r_uv``, ``chi2``, ``w``, ``Jc2``, ``Jl2`` and
-    blocks ``Hcc_o``, ``Hll_o``, ``Hcl_o``, ``bc_o``, ``bl_o``; the sums
+    per-observation ``pc``, ``r_uv``, ``r_xr``, ``chi2``, ``w``, ``Jc2``,
+    ``Jl2``, ``Jc3``, ``Jl3`` and blocks ``Hcc_o``, ``Hll_o``, ``Hcl_o``,
+    ``bc_o``, ``bl_o``; the sums
     ``Hcc``, ``Hll``, ``bc``, ``bl``, ``W``; ``Hll_inv``, ``WHinv``, the
     Schur product ``S_red`` and the camera system ``S``, ``rhs`` (``[6C,
     6C]`` / ``[6C]``, row (c, i)); the clipped landmark step ``dx_l``, and
