@@ -41,8 +41,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    System's CPU ATE of that sequence, JAX_CPU_MONO_ATE, printed beside
    the card's, ROADMAP C45); the seed-0 and seed-1 sequences (8
    frames each) reported (the JAX System's CPU runs are
-   tests/test_torch_mono.py's slow tests'); driven with fixed summation
-   orders (deterministic()), so that a run gives one result;
+   tests/test_torch_mono.py's slow tests');
 8. the stereo path: 40 rendered pairs, 0.1 m baseline; TRACKING, tracked
    >= 39, > 200 landmarks, ATE < 0.06 m; (b, after 10) the same path at
    two dataset cameras, each from its YAML (DATASET_CAMERAS): EuRoC's
@@ -175,8 +174,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    source: poses within 1e-4, points within 1e-3 m; (g)
    rgbd_chain_ba_checks: the same for the main path's RGB-D System's
    first chain (its stereo rows from the depth: the C source's 3-row
-   arithmetic), with (f)'s bounds and the card's sums in fixed orders;
-20. one JSON line with each path's numbers, one with the rectifier's, one
+   arithmetic), with (f)'s bounds;
+20. one input, one result (determinism_checks): the card's floating-point
+   sums run in one fixed order (utils/types.segment_sum) and no global
+   torch flag is set, so each of these, run again in fresh objects of
+   this process, must be bit-equal to its first run: (a) the main path
+   (16 RGB-D frames at 320x240, numpy seed 42, K = 32, L = 8192, loop
+   closing off: every frame's pose and every MapState field), (b) phase
+   7's gated monocular sequence (mono_320: poses, Sim3 ATE, the map), (c)
+   phase 19 (g)'s card BA on its recorded call (three runs), (d) phase
+   11's pose-graph solves and deferred global BA chunks on their recorded
+   inputs (the port's optimize_pose_graph and global_ba.solve outputs,
+   two runs beside the path's own), (e) the PLP System's first 6 frames
+   (at least two keyframe chains with lines: the line window's BA and the
+   landmark statistics). Every driven path prints ``path <name> trajectory sha256
+   <digest>`` (and the paths line carries it): two runs of this script on
+   unchanged code print the same digest for every path without loop
+   closing;
+21. one JSON line with each path's numbers, one with the rectifier's, one
    with phase 19's, one with every kernel's numbers (launches per path
    added), the card line, and the result line ``{"ok": true, "device":
    {...}}`` last.
@@ -190,6 +205,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import hashlib
 import json
 import os
 import subprocess
@@ -767,7 +783,8 @@ def path_numbers(name, fm, recorder, slam, base, n_items, tracked, wall, plain=N
            "landmarks": slam.num_landmarks, "relocalizations": slam.num_relocalizations,
            "max_keyframes": slam.max_keyframes, "max_landmarks": slam.max_landmarks,
            "stage_median_ms": {k: v["median_ms"] for k, v in timing.items()},
-           "stage_count": {k: v["count"] for k, v in timing.items()}}
+           "stage_count": {k: v["count"] for k, v in timing.items()},
+           "trajectory_sha256": trajectory_digest(slam)}
     print(f"path {name}: {n_items} frames, tracked {tracked}, state {run['state']}, "
           f"keyframes {run['keyframes']} (chains {chains}), landmarks {run['landmarks']}, "
           f"relocalizations {run['relocalizations']} of {relocs} attempts, capacities "
@@ -778,6 +795,7 @@ def path_numbers(name, fm, recorder, slam, base, n_items, tracked, wall, plain=N
         print(f"path {name} stage {stage}: count {s['count']} median {s['median_ms']:.3f} ms "
               f"mean {s['mean_ms']:.3f} ms max {s['max_ms']:.3f} ms")
     print(f"path {name} card: {card_line()}")
+    print(f"path {name} trajectory sha256 {run['trajectory_sha256']}")
     print(f"path {name}: fused_match launches {launches} of {calls} calls; by site "
           f"{run['site_launches']} launches of {run['site_calls']} calls, expected {expected}"
           f"{' through the masked matchers' if plain else ''}; by rows {by_rows}")
@@ -807,6 +825,17 @@ def path_numbers(name, fm, recorder, slam, base, n_items, tracked, wall, plain=N
     return run
 
 
+def trajectory_digest(slam):
+    """SHA-256 of the System's frame trajectory (each timestamp as f64,
+    each pose's 12 entries as f32): two runs with one digest tracked the
+    same frames to the same bits."""
+    h = hashlib.sha256()
+    for ts, P in slam.frame_trajectory():
+        h.update(np.float64(ts).tobytes())
+        h.update(np.ascontiguousarray(P, dtype=np.float32).tobytes())
+    return h.hexdigest()
+
+
 def ate_of(traj_io, slam, poses, align_scale, fps=30.0):
     """ATE of the frame trajectory against poses fed at ``fps``."""
     gt = [(float(i) / fps, np.concatenate([R, t[:, None]], 1)) for i, (R, t) in enumerate(poses)]
@@ -825,21 +854,6 @@ def center_error(slam, pose):
     P = slam.frame_trajectory()[-1][1]
     R, t = pose
     return float(np.linalg.norm(-P[:, :3].T @ P[:, 3] + R.T @ t))
-
-
-@contextlib.contextmanager
-def deterministic():
-    """Fixed summation orders inside: the Gauss-Newton solvers' segment
-    sums (index_add_, index_put_ with accumulate) otherwise add in another
-    order on every run on the card, and the monocular path follows them
-    chaotically (its gated sequence read 0.068-0.084 m over runs of one
-    code). The sums then sort their indices, about a third more device
-    operations per frame, so only the monocular phase runs so."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
 
 
 def blackout_items(frames, shown, black_ts, turn=False):
@@ -955,9 +969,8 @@ def other_paths(fm, cam, cfg, N, device="cuda", capacities=(256, 32768)):
                                                       step=0.08)
         slam = system(dataclasses.replace(cfg, camera=c, orb=orb), max_kf_interval=3,
                       max_keyframes=caps[0], max_landmarks=caps[1])
-        with deterministic():
-            r = drive_path(name, fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to),
-                           slam, mono_feed, frames)
+        r = drive_path(name, fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to),
+                       slam, mono_feed, frames)
         ate = ate_of(traj_io, slam, poses, align_scale=True)
         n_traj = len(slam.frame_trajectory())
         gated = name in ("mono", "mono_320")
@@ -1828,6 +1841,19 @@ def _system_ba_calls(setup="mono"):
     return calls
 
 
+def _local_ba_on(call, device):
+    """A recorded ``local_ba`` call run on ``device`` (fresh copies of its
+    inputs there): the output map as numpy arrays."""
+    from structure_plp_slam_tpu_torch.data import map_state
+    from structure_plp_slam_tpu_torch.models import mapper
+
+    (camera, state, slot, isg), kw = call
+    card_kw = {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()}
+    card_state = map_state.from_numpy(map_state.to_numpy(state), device)
+    return map_state.to_numpy(
+        mapper.local_ba(camera, card_state, slot, isg.to(device), **card_kw)[0])
+
+
 def _ba_card_vs_cpu(name, call, device):
     """One recorded ``local_ba`` call on the CPU (its C route) and on
     ``device`` (the PyTorch iteration there): the largest pose and point
@@ -1838,10 +1864,7 @@ def _ba_card_vs_cpu(name, call, device):
 
     (camera, state, slot, isg), kw = call
     host = map_state.to_numpy(mapper.local_ba(camera, state, slot, isg, **kw)[0])
-    card_kw = {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()}
-    card_state = map_state.from_numpy(map_state.to_numpy(state), device)
-    card = map_state.to_numpy(
-        mapper.local_ba(camera, card_state, slot, isg.to(device), **card_kw)[0])
+    card = _local_ba_on(call, device)
     moved = float(np.abs(host["kf_pose"] - map_state.to_numpy(state)["kf_pose"]).max())
     res = {"pose_abs": float(np.abs(card["kf_pose"] - host["kf_pose"]).max()),
            "points_abs": float(np.abs(card["lm_pos"] - host["lm_pos"]).max()),
@@ -1925,23 +1948,207 @@ def rgbd_chain_ba_checks(device="cuda"):
     from the depth) runs again on the card (the PyTorch iteration) and on
     the CPU (``ops/ba_cpu``'s C source, XLA:CPU's 3-row arithmetic): poses
     within 1e-4, points within 1e-3 m, the detached observations equal on
-    >= 99% of slots (phase 19 (f)'s bounds). The card's sums run in fixed
-    orders (deterministic()): this first window's BA moves points by up to
-    4 m in its 8 iterations, and follows the order of the card's segment
-    sums, which otherwise changes on every run (points 2.3e-4 to 1.4e-3 m
-    from the CPU's over four runs of one code; 2.7e-4 m on each of three
-    with fixed orders; PERF.md §6). Returns the largest differences
-    and the share of stereo rows in the window."""
+    >= 99% of slots (phase 19 (f)'s bounds). This first window's BA moves
+    points by up to 4 m in its 8 iterations, so the card's result follows
+    the order of its sums: one order on every run since they are
+    utils/types.segment_sum (while they were atomics, points read 1.4e-4
+    to 1.4e-3 m from the CPU's over six runs of one code; PERF.md §6).
+    Returns the largest differences and the share of stereo rows in the
+    window, and the recorded call (phase 20 (c) runs it again)."""
     calls = _system_ba_calls("rgbd")
     if "chain" not in calls:
         raise AssertionError("phase 19 (g): the RGB-D System ran no keyframe chain BA")
     (_, state, slot, _), _ = calls["chain"]
-    with deterministic():
-        res = _ba_card_vs_cpu("rgbd_chain_ba", calls["chain"], device)
+    res = _ba_card_vs_cpu("rgbd_chain_ba", calls["chain"], device)
     kp = state.kf_kp_valid[slot] & (state.kf_lm_idx[slot] >= 0)
     res["stereo_share"] = float((state.kf_xr[slot][kp] >= 0).float().mean())
     gate("rgbd_chain_ba", res["stereo_share"] > 0.5, f"stereo share {res['stereo_share']}")
-    return res
+    return res, calls["chain"]
+
+
+def _clone(x):
+    """A copy of ``x`` whose tensors no later work can change (tuples,
+    named tuples, lists and dicts copied through)."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [_clone(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    if isinstance(x, list):
+        return [_clone(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def recording(calls, module, names):
+    """Inside, every call of ``module``'s functions ``names`` (made through
+    the module, as the System makes them) is kept in ``calls[name]`` as
+    copies of its arguments and its result."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def keep(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.setdefault(name, []).append((_clone(args), _clone(kw), _clone(out)))
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, keep(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _tensors(x):
+    """The tensors in ``x`` (nested tuples, lists and dicts), in order."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _tensors(x[k])]
+    return []
+
+
+def _bits(t):
+    """A tensor's bytes on the host (NaNs compare by their bits)."""
+    return t.detach().cpu().contiguous().numpy().tobytes(), tuple(t.shape), str(t.dtype)
+
+
+def _runs_equal(label, runs):
+    """Whether every run's tensors are the first run's, bit for bit; prints
+    the count and, where one differs, which and by how much."""
+    first = [_bits(t) for t in _tensors(runs[0])]
+    apart = []
+    for k, run in enumerate(runs[1:], 1):
+        ts = _tensors(run)
+        if len(ts) != len(first):
+            apart.append((k, "structure"))
+            continue
+        for i, (t, b) in enumerate(zip(ts, first)):
+            if _bits(t) != b:
+                a = _tensors(runs[0])[i].detach().cpu().double()
+                gap = float((t.detach().cpu().double() - a).abs().max()) if a.numel() else 0.0
+                apart.append((k, i, tuple(t.shape), gap))
+    print(f"determinism {label}: {len(runs)} runs, {len(first)} tensors each: "
+          f"{'all bit-equal' if not apart else f'apart {apart[:8]}'}")
+    return not apart
+
+
+def _system_run(make, frames, feed):
+    """A fresh System fed ``frames``: each feed's pose, the frame
+    trajectory (as tensors) and every MapState field, on the host."""
+    slam = make()
+    slam.startup()
+    poses = []
+    for f in frames:
+        out = feed(slam, f)
+        poses.append(torch.as_tensor(out).cpu() if out is not None else torch.zeros(0))
+    slam.shutdown()
+    traj = [torch.as_tensor(np.asarray(P)) for _, P in slam.frame_trajectory()]
+    st = slam.state
+    return ({"poses": poses, "trajectory": traj,
+             "state": {f: getattr(st, f).cpu() for f in st._fields}},
+            trajectory_digest(slam), slam)
+
+
+def determinism_checks(cam, cfg, rgbd_call, loop_calls, device="cuda"):
+    """Phase 20: each run below, repeated in fresh objects of this process,
+    is bit-equal to its first run, with no global torch flag set (see the
+    phase list). ``rgbd_call``: phase 19 (g)'s recorded local BA call;
+    ``loop_calls``: phase 11's recorded pose-graph and global BA calls
+    (``recording``). Returns each check's verdict and digests; fails
+    unless all hold. ``device="cpu"`` rehearses it on the CPU."""
+    import dataclasses
+
+    from structure_plp_slam_tpu_torch.camera import CameraSetup
+    from structure_plp_slam_tpu_torch.io import trajectory as traj_io
+    from structure_plp_slam_tpu_torch.models import global_ba
+    from structure_plp_slam_tpu_torch.models import pose_graph as pg
+    from structure_plp_slam_tpu_torch.ops.orb import OrbParams
+    from structure_plp_slam_tpu_torch.system import System
+    from structure_plp_slam_tpu_torch.testing import synthetic_scene
+
+    out = {}
+
+    def systems(label, make, frames, feed, extra=None):
+        runs, digests = [], []
+        for _ in range(2):
+            run, digest, slam = _system_run(make, frames, feed)
+            if extra is not None:
+                run["extra"] = extra(slam)
+            runs.append(run)
+            digests.append(digest)
+        ok = _runs_equal(label, runs) and digests[0] == digests[1]
+        print(f"determinism {label}: trajectory sha256 {digests[0]} ({len(frames)} frames)")
+        out[label] = {"equal": ok, "trajectory_sha256": digests[0], "frames": len(frames)}
+        return runs[0]
+
+    # (a) the main path: ROADMAP's 16 RGB-D frames at 320x240.
+    small = dataclasses.replace(cam, cols=320, rows=240, fx=260.0, fy=260.0, cx=159.5,
+                                cy=119.5, focal_x_baseline=26.0, depth_threshold=400.0)
+    small_cfg = dataclasses.replace(cfg, camera=small,
+                                    orb=OrbParams(max_num_keypts=600, num_levels=4))
+    frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), small, 16)
+    systems("(a) main path", lambda: System(small_cfg, max_keyframes=32, max_landmarks=8192,
+                                            enable_loop_closing=False, device=device),
+            frames, lambda s, f: s.feed_RGBD_frame(f[0], f[1], f[2]))
+
+    # (b) phase 7's gated monocular sequence (mono_320).
+    mono = dataclasses.replace(small, setup=CameraSetup.MONOCULAR, focal_x_baseline=0.0)
+    frames, poses = synthetic_scene.make_sequence(np.random.default_rng(42), mono, 16,
+                                                  step=0.08)
+    mono_cfg = dataclasses.replace(small_cfg, camera=mono)
+    systems("(b) mono_320", lambda: System(mono_cfg, max_keyframes=32, max_landmarks=8192,
+                                           max_kf_interval=3, enable_loop_closing=False,
+                                           device=device),
+            frames, lambda s, f: s.feed_monocular_frame(f[0], f[2]),
+            extra=lambda s: torch.tensor(ate_of(traj_io, s, poses, align_scale=True),
+                                         dtype=torch.float64))
+
+    # (c) phase 19 (g)'s card BA on its recorded call.
+    runs = [{k: torch.from_numpy(np.asarray(v)) for k, v in _local_ba_on(rgbd_call, device)
+             .items()} for _ in range(3)]
+    out["(c) rgbd chain BA"] = {"equal": _runs_equal("(c) rgbd chain BA", runs)}
+
+    # (d) phase 11's pose-graph solves and global BA chunks, run again.
+    fns = {"optimize_pose_graph": pg.optimize_pose_graph,
+           "optimize_pose_graph_pcg": pg.optimize_pose_graph_pcg,
+           "solve": global_ba.solve, "solve_pcg": global_ba.solve_pcg}
+    counts = {n: len(v) for n, v in loop_calls.items()}
+    ok = bool(loop_calls.get("solve") or loop_calls.get("solve_pcg")) and bool(
+        loop_calls.get("optimize_pose_graph") or loop_calls.get("optimize_pose_graph_pcg"))
+    for name, calls in loop_calls.items():
+        for k, (args, kw, res) in enumerate(calls):
+            again = [fns[name](*args, **kw) for _ in range(2)]
+            ok &= _runs_equal(f"(d) {name} call {k}", [res, *again])
+    out["(d) loop solves"] = {"equal": ok, "calls": counts}
+
+    # (e) the PLP System's first 6 frames: two keyframe chains with lines.
+    tex = synthetic_scene.make_texture(np.random.default_rng(0), grid=True)
+    frames = []
+    for i, (R, t) in enumerate(synthetic_scene.trajectory(6, step=0.06)):
+        img, depth = synthetic_scene.render(cam, tex, R, t)
+        frames.append((img, depth, np.where(depth < 4.5, 1, 2).astype(np.int32), i / 30.0))
+    first = systems("(e) plp", lambda: System(cfg, max_keyframes=256, max_landmarks=32768,
+                                              with_lines=True, max_kf_interval=PLP_KF_INTERVAL,
+                                              verbose_timing=True, device=device),
+                    frames, lambda s, f: s.feed_RGBD_frame(f[0], f[1], f[3], seg_mask=f[2]),
+                    extra=lambda s: torch.tensor([len(s.timer.times.get("keyframe.chain", [])),
+                                                  len(s.timer.times.get("keyframe.lines", []))]))
+    chains, line_stages = (int(v) for v in first["extra"])
+    out["(e) plp"].update(chains=chains, line_stages=line_stages)
+    print(f"determinism: {json.dumps(out)}")
+    gate("determinism", chains >= 2 and line_stages >= 2,
+         f"(e) ran {chains} keyframe chains, {line_stages} with lines")
+    gate("determinism", all(v["equal"] for v in out.values()),
+         f"runs of one input apart: {[k for k, v in out.items() if not v['equal']]}")
+    return out
 
 
 def knob_checks(cam, slam, frames, device="cuda"):
@@ -2079,7 +2286,7 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
         same frames under torch.profiler and one frame under the sync
         debug mode;
     (b) mono_lines: monocular, lines on, 16 frames at 0.08 m a frame,
-        max_kf_interval=3, fixed sums (deterministic()), the texture of
+        max_kf_interval=3, the texture of
         test_mono_point_line_slam (numpy seed 42): gated at that test's
         320x240 configuration, and driven at the main path's width too
         (mono_lines_full, 8 frames, reported: ROADMAP C17);
@@ -2187,9 +2394,8 @@ def plp_paths(fm, cam, cfg, N, capacities=(256, 32768)):
         slam = System(dataclasses.replace(cfg, camera=c, orb=orb), max_keyframes=caps[0],
                       max_landmarks=caps[1], with_lines=True, verbose_timing=True,
                       device="cuda", max_kf_interval=3, enable_loop_closing=False)
-        with deterministic():
-            r = drive_path(name, fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to),
-                           slam, lambda s, f: s.feed_monocular_frame(f[0], f[3]), frames)
+        r = drive_path(name, fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to),
+                       slam, lambda s, f: s.feed_monocular_frame(f[0], f[3]), frames)
         ate = ate_of(traj_io, slam, poses, align_scale=True)
         # The map Sim3-aligned to ground truth through the camera centres
         # (paired by timestamp: the trajectory starts at the two-view init).
@@ -2312,8 +2518,8 @@ def equirect_path(fm, capacities=(256, 32768)):
     keypoints over 8 levels at scale factor 1.2, its four mask
     rectangles), EQUIRECT_FRAMES frames of the port's cube room at 0.09 m
     a frame (tests/test_equirect_system.py's texture, numpy seed 42, and
-    its max_kf_interval=3), loop closing on (the default), fixed sums
-    (deterministic(), ROADMAP C20). The sphere's matches take the masked
+    its max_kf_interval=3), loop closing on (the default). The sphere's
+    matches take the masked
     matchers with the u window wrapped, not the kernel (the JAX package's
     routing), so the kernel's launches must be 0 and every masked matcher
     call equal to its CPU run (PlainRecorder). Gates: the map initialized,
@@ -2347,9 +2553,8 @@ def equirect_path(fm, capacities=(256, 32768)):
 
     torch.cuda.reset_peak_memory_stats()
     slam = make_system()
-    with deterministic():
-        r = drive_path("equirect", fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to),
-                       slam, feed, frames, plain=PlainRecorder())
+    r = drive_path("equirect", fm, SiteRecorder(fm, tracker, mapper, slam.frontend.pad_to),
+                   slam, feed, frames, plain=PlainRecorder())
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     est = slam.frame_trajectory()
     ate = ate_of(traj_io, slam, poses, align_scale=True) if len(est) >= 3 else float("inf")
@@ -2793,8 +2998,6 @@ def count_syncs(make_system, frames, feed, warm=4):
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device (this script never runs on the CPU)")
-    # Before cuBLAS starts: deterministic() needs it for fixed sums.
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import structure_plp_slam_tpu_torch  # noqa: F401  (sets TF32 off)
         from structure_plp_slam_tpu_torch.ops import fused_match as fm
@@ -3016,7 +3219,13 @@ def main():
     phase_done("8 (b)")
 
     # ---- 11. loop closing ---------------------------------------------------
-    runs["loop"], loop_args, _ = loop_path(fm, cam, cfg, N)
+    from structure_plp_slam_tpu_torch.models import global_ba
+    from structure_plp_slam_tpu_torch.models import pose_graph as pg
+
+    loop_calls = {}
+    with recording(loop_calls, pg, ("optimize_pose_graph", "optimize_pose_graph_pcg")), \
+            recording(loop_calls, global_ba, ("solve", "solve_pcg")):
+        runs["loop"], loop_args, _ = loop_path(fm, cam, cfg, N)
     timed["loop_fuse"] = loop_args
     torch.save({k: tuple(a.cpu() for a in v) for k, v in timed.items()}, INPUTS)
     child = time_in_child(["loop_fuse", *kitti_inputs])
@@ -3078,17 +3287,23 @@ def main():
     ops["xla_cpu_routes"] = init_ba_checks()
     ops["chain_ba"] = chain_ba_checks()
     phase_done("19 (a-f)")
-    ops["rgbd_chain_ba"] = rgbd_chain_ba_checks()
+    ops["rgbd_chain_ba"], rgbd_call = rgbd_chain_ba_checks()
     phase_done("19 (g)")
+
+    # ---- 20. one input, one result ----------------------------------------
+    determinism = determinism_checks(cam, cfg, rgbd_call, loop_calls)
+    del loop_calls
+    phase_done("20")
     for k in kernels:
         site = k["name"].split("@")[1]
         k["launches_by_path"] = {p: r["site_launches"][site] for p, r in runs.items()}
 
-    # ---- 20. result lines ------------------------------------------------
+    # ---- 21. result lines ------------------------------------------------
     paths = {p: {key: r[key] for key in ("frames", "tracked", "frames_per_s", "state",
                                          "keyframes", "landmarks", "relocalizations",
                                          "launches", "max_abs_err", "stage_median_ms",
-                                         "max_keyframes", "max_landmarks", "gates")
+                                         "max_keyframes", "max_landmarks", "gates",
+                                         "trajectory_sha256")
                  + tuple(k for k in ("line_stage_median_ms", "profile", "syncs_per_frame",
                                      "plain_calls", "io", "cli", "mesh_solves",
                                      "kernel_timing") if k in r)}
@@ -3096,6 +3311,7 @@ def main():
     print(json.dumps({"paths": paths}))
     print(json.dumps({"rectify_fisheye": rectify}))
     print(json.dumps({"public_ops": ops}))
+    print(json.dumps({"determinism": determinism}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

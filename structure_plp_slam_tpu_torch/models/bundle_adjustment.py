@@ -7,10 +7,11 @@ damped GN with an outlier cull between phases). Per iteration:
   1. residuals + analytic Jacobians for every observation
   2. per-observation normal-equation blocks Hcc [O,6,6], Hll [O,3,3],
      Hcl [O,6,3], bc [O,6], bl [O,3]
-  3. segment sums into cameras, landmarks and (landmark, camera) pairs —
-     ``index_add_`` on the flattened ids, the torch form of the JAX
-     package's one-hot contractions (its ``obs_grid`` layout, where the
-     observations are a dense [C, O/C] camera grid, is just one case)
+  3. segment sums into cameras, landmarks and (landmark, camera) pairs
+     (``utils/types.segment_sum``: ``index_add_`` on the CPU, a fixed
+     order on the card, where a dense [C, O/C] camera grid, ``obs_grid``,
+     is summed by a reshape), the torch form of the JAX package's one-hot
+     contractions
   4. Schur complement S = Hcc - W Hll^-1 W^T, dense [6C, 6C]
   5. Cholesky solve of S, back-substitution of landmark updates.
 
@@ -43,7 +44,8 @@ from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.ops import ba_cpu, lie, linalg, robust
 from structure_plp_slam_tpu_torch.ops import line_geometry as lg
 from structure_plp_slam_tpu_torch.ops.linalg import inv3x3
-from structure_plp_slam_tpu_torch.utils.types import fixed_order_sum, rdiv
+from structure_plp_slam_tpu_torch.utils.types import (fixed_order_sum, rdiv, segment_plan,
+                                                      segment_sum)
 
 
 class BAProblem(NamedTuple):
@@ -101,12 +103,6 @@ def _project_residuals(camera, cam_pose, lm_pos, prob: BAProblem):
 def _obs_chi2(prob, r_uv, r_xr, has_stereo):
     chi2 = torch.sum(r_uv * r_uv, -1) * prob.obs_inv_sigma_sq
     return chi2 + torch.where(has_stereo, r_xr * r_xr * prob.obs_inv_sigma_sq, 0.0)
-
-
-def _segment_sum(ids, vals, n):
-    """Sum rows of ``vals [O, ...]`` into ``n`` bins by ``ids``."""
-    out = vals.new_zeros((n,) + tuple(vals.shape[1:]))
-    return out.index_add_(0, ids, vals)
 
 
 def inv4x4_sym(H):
@@ -173,8 +169,8 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
     after which observations are chi2-gated (the reference's two-phase
     structure). ``obs_grid`` is the JAX package's promise that the
     observations form a dense [C, O/C] grid, which there picks a cheaper
-    contraction; the port sums by (landmark, camera) bin whatever the
-    layout, so the promise leaves the solve as it is. ``_xla``: the JAX
+    contraction; on the card the port then sums the camera blocks by a
+    reshape (on the CPU ``index_add_`` sums every layout). ``_xla``: the JAX
     program whose solve this call is, ``"init"`` (the System's two-view
     init) or ``"chain"`` (its keyframe chain); on the CPU (a pinhole camera,
     no lines) each iteration is then XLA:CPU's arithmetic (``ops/ba_cpu``)."""
@@ -211,6 +207,15 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
                                                chi2_l0.shape[0] - 1).reshape(1))[0]
         med = torch.where(torch.isfinite(med), med, zero)
         lobs_live = lobs_live & (chi2_l0 <= torch.clamp(9.0 * med, min=9.0 * robust.CHI2_2D))
+    # The card's fixed summation orders, one per index set and solve; rows
+    # not live now never add anything later (the cull only removes).
+    cam_plan = segment_plan(prob.obs_cam, C, grid=obs_grid)
+    lm_plan = segment_plan(prob.obs_lm, M, keep=obs_live)
+    pair_plan = segment_plan(pair, M * C, keep=obs_live)
+    if lines is not None:
+        lcam_plan = segment_plan(lines.lobs_cam, C, keep=lobs_live)
+        line_plan = segment_plan(lines.lobs_line, Ml, keep=lobs_live)
+        lpair_plan = segment_plan(lpair, Ml * C, keep=lobs_live)
     if _xla is not None and _xla not in ba_cpu.PROGRAMS:
         raise ValueError(f"_xla={_xla!r}: the XLA:CPU iteration knows {ba_cpu.PROGRAMS}")
     xla = _xla is not None and ba_cpu.serves(camera, prob, lines)
@@ -261,11 +266,11 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
         Hcl_o = torch.einsum("ori,orj->oij", Jc2w, Jl2) + torch.einsum("oi,oj->oij", Jc3w, Jl3)
         bc_o = -(torch.einsum("ori,or->oi", Jc2w, r_uv) + Jc3 * (w_st * r_xr)[:, None])
         bl_o = -(torch.einsum("ori,or->oi", Jl2w, r_uv) + Jl3 * (w_st * r_xr)[:, None])
-        Hcc = _segment_sum(prob.obs_cam, Hcc_o, C)
-        bc = _segment_sum(prob.obs_cam, bc_o, C)
-        Hll = _segment_sum(prob.obs_lm, Hll_o, M)
-        bl = _segment_sum(prob.obs_lm, bl_o, M)
-        W = _segment_sum(pair, Hcl_o, M * C).reshape(M, C, 6, 3)
+        Hcc = segment_sum(prob.obs_cam, Hcc_o, C, plan=cam_plan)
+        bc = segment_sum(prob.obs_cam, bc_o, C, plan=cam_plan)
+        Hll = segment_sum(prob.obs_lm, Hll_o, M, plan=lm_plan)
+        bl = segment_sum(prob.obs_lm, bl_o, M, plan=lm_plan)
+        W = segment_sum(pair, Hcl_o, M * C, plan=pair_plan).reshape(M, C, 6, 3)
         if lines is not None:
             r_l, Jc_l, Jl_l = line_residuals_and_jacobians(
                 camera, ln_U[lines.lobs_line], ln_w[lines.lobs_line],
@@ -276,12 +281,16 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
                 robust.huber_weight(chi2_l, robust.CHI2_2D) * lines.lobs_inv_sigma_sq, zero)
             Jc_lw = Jc_l * w_lo[:, None, None]
             Jl_lw = Jl_l * w_lo[:, None, None]
-            Hcc = Hcc + _segment_sum(lines.lobs_cam, torch.einsum("ori,orj->oij", Jc_lw, Jc_l), C)
-            bc = bc + _segment_sum(lines.lobs_cam, -torch.einsum("ori,or->oi", Jc_lw, r_l), C)
-            Hln = _segment_sum(lines.lobs_line, torch.einsum("ori,orj->oij", Jl_lw, Jl_l), Ml)
-            bln = _segment_sum(lines.lobs_line, -torch.einsum("ori,or->oi", Jl_lw, r_l), Ml)
-            Wl = _segment_sum(lpair, torch.einsum("ori,orj->oij", Jc_lw, Jl_l),
-                              Ml * C).reshape(Ml, C, 6, 4)
+            Hcc = Hcc + segment_sum(lines.lobs_cam, torch.einsum("ori,orj->oij", Jc_lw, Jc_l),
+                                    C, plan=lcam_plan)
+            bc = bc + segment_sum(lines.lobs_cam, -torch.einsum("ori,or->oi", Jc_lw, r_l), C,
+                                  plan=lcam_plan)
+            Hln = segment_sum(lines.lobs_line, torch.einsum("ori,orj->oij", Jl_lw, Jl_l), Ml,
+                              plan=line_plan)
+            bln = segment_sum(lines.lobs_line, -torch.einsum("ori,or->oi", Jl_lw, r_l), Ml,
+                              plan=line_plan)
+            Wl = segment_sum(lpair, torch.einsum("ori,orj->oij", Jc_lw, Jl_l), Ml * C,
+                             plan=lpair_plan).reshape(Ml, C, 6, 4)
 
         # --- Schur elimination ---------------------------------------------
         lam_l = damping * torch.clamp(
@@ -332,7 +341,8 @@ def ba_solve(camera, prob: BAProblem, lines: LineWindow = None, *, num_iters: in
             # moves only while >= 2 live observations constrain it.
             dx_ln = torch.einsum("mij,mj->mi", Hln_inv,
                                  bln - torch.einsum("mcij,ci->mj", Wl, dx_c))
-            ln_cnt = _segment_sum(lines.lobs_line, lobs_live.to(torch.int64), Ml)
+            ln_cnt = torch.zeros((Ml,), dtype=torch.int64, device=dev).index_add_(
+                0, lines.lobs_line, lobs_live.to(torch.int64))
             ok_ln = lines.ln_valid & (ln_cnt >= 2) & torch.isfinite(dx_ln).all(-1) & ok
             dx_ln = torch.where(ok_ln[:, None], torch.clamp(dx_ln, -0.3, 0.3), zero)
             ln_U, ln_w = lg.orthonormal_update(ln_U, ln_w, dx_ln)

@@ -10,20 +10,19 @@ scale to a whole map, so this one follows BA's sparsity:
 couples camera PAIRS that co-observe a landmark. The host enumerates the
 observations and the observation pairs (o1, o2 on the same landmark) once
 per run (numpy); per Gauss-Newton iteration the device computes the
-per-observation Jacobian blocks, scatters ``-U_o1 Hll^-1 U_o2^T`` over the
-pair list into the block camera system ``[K, K, 6, 6]``
-(``index_put_(accumulate=True)``), Cholesky-solves it and back-substitutes
-the landmarks. ``solve_pcg`` applies the same Schur operator matrix-free
-inside a PCG for large K. With a ``mesh`` of more than one landmark shard
+per-observation Jacobian blocks, sums ``-U_o1 Hll^-1 U_o2^T`` over the
+pair list into the block camera system ``[K, K, 6, 6]``, Cholesky-solves
+it and back-substitutes the landmarks. ``solve_pcg`` applies the same
+Schur operator matrix-free inside a PCG for large K. With a ``mesh`` of more than one landmark shard
 :func:`run_global_ba` runs the landmark-sharded solve instead
 (``parallel/distributed_ba``, :func:`_run_global_ba_sharded`). The JAX
 package caches each mesh solve's jitted executable (``_DIST_BA_CACHE``);
 eager torch has nothing to cache, so the port has no such cache.
 
-Scatter-add order: on the card the sums of ``index_add_`` /
-``index_put_(accumulate=True)`` run in no fixed order, so the normal
-equations differ from the JAX package's at about 1e-6 relative; on the
-CPU the order is the indices' order.
+Every sum by camera, landmark or camera pair is ``utils/types.segment_sum``:
+on the CPU ``index_add_``, which adds in the indices' order; on the card
+one fixed order, the same on every run, from summation plans built once
+per solve (:func:`with_plans`), which leave the padding rows out.
 """
 
 from __future__ import annotations
@@ -36,7 +35,8 @@ import torch
 from structure_plp_slam_tpu_torch.camera import base as cam_base
 from structure_plp_slam_tpu_torch.models import pose_graph as pg
 from structure_plp_slam_tpu_torch.ops import lie, linalg, robust
-from structure_plp_slam_tpu_torch.utils.types import rdiv, resolve_device
+from structure_plp_slam_tpu_torch.utils.types import (SegmentPlan, rdiv, resolve_device,
+                                                      segment_plan, segment_sum)
 
 MIN_OBS = 100        # fewer observations than this: no global BA
 
@@ -55,6 +55,11 @@ class GlobalBAData(NamedTuple):
     pair_o2: torch.Tensor    # [P] i64 observation index (same landmark)
     num_obs: int
     num_pairs: int
+    # The card's summation plans over obs_cam, obs_lm and the pairs'
+    # camera blocks (with_plans); without them each sum builds its own.
+    cam_plan: SegmentPlan = None
+    lm_plan: SegmentPlan = None
+    pair_plan: SegmentPlan = None
 
 
 def prepare(state, inv_sigma_sq_table, max_obs_per_lm: int = 12) -> GlobalBAData:
@@ -132,8 +137,32 @@ def prepare_from_arrays(kf_valid, kp_valid, lm_idx, lm_valid, xy, xr, level, tab
     )
 
 
-def _segment_sum(ids, vals, n):
-    return vals.new_zeros((n,) + tuple(vals.shape[1:])).index_add_(0, ids, vals)
+def _pair_ids(data, K):
+    """Each pair's (cam(o1), cam(o2)) block of the ``[K, K]`` camera system."""
+    return data.obs_cam[data.pair_o1] * K + data.obs_cam[data.pair_o2]
+
+
+def with_plans(data: GlobalBAData, K: int, L: int, live=None, pair_valid=None) -> GlobalBAData:
+    """``data`` with its summation plans for ``K`` cameras and ``L``
+    landmarks (``utils/types.segment_plan``; none on the CPU). ``live`` /
+    ``pair_valid``: the observations and pairs that may add something (by
+    default the first ``num_obs`` / ``num_pairs``); the others weigh 0."""
+    dev = data.obs_cam.device
+    if live is None:
+        live = torch.arange(data.obs_cam.shape[0], device=dev) < data.num_obs
+    if pair_valid is None:
+        pair_valid = torch.arange(data.pair_o1.shape[0], device=dev) < data.num_pairs
+    return data._replace(cam_plan=segment_plan(data.obs_cam, K, keep=live),
+                         lm_plan=segment_plan(data.obs_lm, L, keep=live),
+                         pair_plan=segment_plan(_pair_ids(data, K), K * K, keep=pair_valid))
+
+
+def _cam_sum(data, vals, K):
+    return segment_sum(data.obs_cam, vals, K, plan=data.cam_plan)
+
+
+def _lm_sum(data, vals, L):
+    return segment_sum(data.obs_lm, vals, L, plan=data.lm_plan)
 
 
 def _normal_blocks(camera, cam_pose, lm_pos, data: GlobalBAData, damping, live=None):
@@ -180,10 +209,10 @@ def _normal_blocks(camera, cam_pose, lm_pos, data: GlobalBAData, damping, live=N
     bc_o = -(torch.einsum("ori,or->oi", Jc2w, r_uv) + Jc3 * (w_st * r_xr)[:, None])
     bl_o = -(torch.einsum("ori,or->oi", Jl2w, r_uv) + Jl3 * (w_st * r_xr)[:, None])
 
-    Hcc = _segment_sum(data.obs_cam, Hcc_o, K)
-    bc = _segment_sum(data.obs_cam, bc_o, K)
-    Hll = _segment_sum(data.obs_lm, Hll_o, L)
-    bl = _segment_sum(data.obs_lm, bl_o, L)
+    Hcc = _cam_sum(data, Hcc_o, K)
+    bc = _cam_sum(data, bc_o, K)
+    Hll = _lm_sum(data, Hll_o, L)
+    bl = _lm_sum(data, bl_o, L)
     lam_l = damping * torch.clamp(
         torch.diagonal(Hll, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 3.0, min=1e-6)
     Hll_inv = linalg.inv(Hll + lam_l * eye3)
@@ -195,7 +224,7 @@ def _schur_reduction(data, U_o, Hll_inv, bl, K):
     Schur right-hand side is bc minus it), and ``U_o Hll^-1 [O, 6, 3]``."""
     UHinv = torch.einsum("oij,ojk->oik", U_o, Hll_inv[data.obs_lm])
     rhs_o = torch.einsum("oij,oj->oi", UHinv, bl[data.obs_lm])
-    return _segment_sum(data.obs_cam, rhs_o, K), UHinv
+    return _cam_sum(data, rhs_o, K), UHinv
 
 
 def _pair_blocks(data, U_o, Hll_inv, K, pair_valid=None):
@@ -206,10 +235,8 @@ def _pair_blocks(data, U_o, Hll_inv, K, pair_valid=None):
                           Hll_inv[data.obs_lm[data.pair_o1]], U_o[data.pair_o2])
     if pair_valid is not None:
         S_pair = torch.where(pair_valid[:, None, None], S_pair, 0.0)
-    S_red = U_o.new_zeros((K, K, 6, 6))
-    S_red.index_put_((data.obs_cam[data.pair_o1], data.obs_cam[data.pair_o2]), S_pair,
-                     accumulate=True)
-    return S_red
+    return segment_sum(_pair_ids(data, K), S_pair, K * K,
+                       plan=data.pair_plan).reshape(K, K, 6, 6)
 
 
 def _camera_solve(S_red, Hcc, rhs, free, damping):
@@ -241,8 +268,8 @@ def _damped(Hcc, damping):
 def _offdiag_product(data, U_o, UHinv, xf, L, K):
     """sum_o U_o Hll^-1_lm(o) (sum_{o'~lm(o)} U_o'^T xf_c(o')) per camera:
     the part of the Schur product S xf that Hcc does not give."""
-    g = _segment_sum(data.obs_lm, torch.einsum("oij,oi->oj", U_o, xf[data.obs_cam]), L)
-    return _segment_sum(data.obs_cam, torch.einsum("oik,ok->oi", UHinv, g[data.obs_lm]), K)
+    g = _lm_sum(data, torch.einsum("oij,oi->oj", U_o, xf[data.obs_cam]), L)
+    return _cam_sum(data, torch.einsum("oik,ok->oi", UHinv, g[data.obs_lm]), K)
 
 
 def _apply_reduced(Hcc_d, x, offdiag, free):
@@ -256,27 +283,40 @@ def _apply_reduced(Hcc_d, x, offdiag, free):
 def _self_blocks(data, U_o, UHinv, K):
     """The self-pair terms sum_o U_o Hll^-1 U_o^T per camera: S's block
     diagonal is the damped Hcc minus them."""
-    return _segment_sum(data.obs_cam, torch.einsum("oik,ojk->oij", UHinv, U_o), K)
+    return _cam_sum(data, torch.einsum("oik,ojk->oij", UHinv, U_o), K)
 
 
-def _chain_blocks(data, U_o, UHinv, free_f, chain_o1, chain_o2, chain_pos, K):
+def _chain_ids(chain_o1, chain_pos, K):
+    """Each chain pair's bin: its position, or K (dropped) for a padding
+    row (o1 < 0) or a position of K or beyond."""
+    return torch.where((chain_o1 >= 0) & (chain_pos < K), chain_pos, K)
+
+
+def chain_plan(chain_o1, chain_pos, K):
+    """The card's summation plan of :func:`_chain_blocks` (none on the CPU)."""
+    ids = _chain_ids(chain_o1, chain_pos, K)
+    return segment_plan(ids, K + 1, keep=ids < K)
+
+
+def _chain_blocks(data, U_o, UHinv, free_f, chain_o1, chain_o2, chain_pos, K, plan=None):
     """The chain couplings ``[K, 6, 6]`` of the PCG preconditioner: each
     chain pair's -U_o1 Hll^-1 U_o2^T (zero unless both cameras are free)
     summed at its position; a padding row (o1 < 0) or a position of K or
-    beyond adds nothing (a K + 1 buffer, cut)."""
+    beyond adds nothing (a K + 1 buffer, cut). ``plan``: from
+    :func:`chain_plan`."""
     O = data.obs_cam.shape[0]
     ok = chain_o1 >= 0
     o1s, o2s = torch.clamp(chain_o1, 0, O - 1), torch.clamp(chain_o2, 0, O - 1)
     f12 = free_f[data.obs_cam[o1s]] * free_f[data.obs_cam[o2s]] * ok
     S_chain = -torch.einsum("pik,pjk->pij", UHinv[o1s], U_o[o2s]) * f12[:, None, None]
-    return _segment_sum(torch.where(ok & (chain_pos < K), chain_pos, K), S_chain, K + 1)[:K]
+    return segment_sum(_chain_ids(chain_o1, chain_pos, K), S_chain, K + 1, plan=plan)[:K]
 
 
 def _step(cam_pose, lm_pos, lm_valid, free, data, U_o, Hll_inv, bl, dx_c):
     """Back-substitute the landmarks (dX_m = Hll_m^-1 (bl_m - sum_o U_o^T
     dx_c(o))), reject a non-finite step, clamp and apply it."""
     L = lm_pos.shape[0]
-    Ut_dxc = _segment_sum(data.obs_lm, torch.einsum("oij,oi->oj", U_o, dx_c[data.obs_cam]), L)
+    Ut_dxc = _lm_sum(data, torch.einsum("oij,oi->oj", U_o, dx_c[data.obs_cam]), L)
     dx_l = torch.einsum("lij,lj->li", Hll_inv, bl - Ut_dxc)
     ok = torch.isfinite(dx_c).all() & torch.isfinite(dx_l).all()
     zero = torch.zeros((), dtype=dx_c.dtype, device=dx_c.device)
@@ -299,6 +339,7 @@ def solve(camera, cam_pose0, cam_valid, cam_fixed, lm_pos0, lm_valid, data: Glob
     Cholesky. Returns (cam_pose [K, 3, 4], lm_pos [L, 3])."""
     K = cam_pose0.shape[0]
     free = (~cam_fixed) & cam_valid
+    data = with_plans(data, K, lm_pos0.shape[0])
     cam_pose, lm_pos = cam_pose0, lm_pos0
     for _ in range(num_iters):
         U_o, Hcc, bc, Hll_inv, bl = _normal_blocks(camera, cam_pose, lm_pos, data, damping)
@@ -370,6 +411,8 @@ def solve_pcg(camera, cam_pose0, cam_valid, cam_fixed, lm_pos0, lm_valid, data: 
     free = (~cam_fixed) & cam_valid
     free_f = free.to(torch.float32)
     chain_pos = chain_positions(data.obs_cam, chain_o1, raw_of_comp)
+    c_plan = chain_plan(chain_o1, chain_pos, K)
+    data = with_plans(data, K, L)
     cam_pose, lm_pos = cam_pose0, lm_pos0
     for _ in range(num_iters):
         U_o, Hcc, bc, Hll_inv, bl = _normal_blocks(camera, cam_pose, lm_pos, data, damping)
@@ -382,7 +425,8 @@ def solve_pcg(camera, cam_pose0, cam_valid, cam_fixed, lm_pos0, lm_valid, data: 
                 Hcc_d, x, _offdiag_product(data, U_o, UHinv, x * free_f[:, None], L, K), free)
 
         D = torch.where(free[:, None, None], Hcc_d - _self_blocks(data, U_o, UHinv, K), eye6)
-        C_t = _chain_blocks(data, U_o, UHinv, free_f, chain_o1, chain_o2, chain_pos, K)
+        C_t = _chain_blocks(data, U_o, UHinv, free_f, chain_o1, chain_o2, chain_pos, K,
+                            plan=c_plan)
         precond = pg._chain_preconditioner(D, C_t, comp_idx, comp_ok)
         dx_c = pg.pcg(matvec, precond, rhs, cg_iters)
         cam_pose, lm_pos = _step(cam_pose, lm_pos, lm_valid, free, data, U_o, Hll_inv, bl, dx_c)

@@ -17,6 +17,7 @@ from structure_plp_slam_tpu_torch.data import map_state as ms
 from structure_plp_slam_tpu_torch.ops import line_geometry as lg
 from structure_plp_slam_tpu_torch.ops import linalg, robust
 from structure_plp_slam_tpu_torch.ops.linalg import jacobian_fwd
+from structure_plp_slam_tpu_torch.utils.types import segment_plan, segment_sum
 
 
 def _obs_residual(camera, U, w, delta, R, t, seg):
@@ -47,6 +48,7 @@ def refine_lines(camera, state: ms.MapState, *, num_iters: int = 4, damping: flo
     n_obs = torch.zeros((L2 + 1,), dtype=torch.int64, device=dev)
     n_obs.index_add_(0, tgt, torch.ones_like(tgt))
     refinable = state.ln_valid & (n_obs[:L2] >= 2)
+    plan = segment_plan(tgt, L2 + 1, keep=obs_valid)
     eye4 = torch.eye(4, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     z4 = torch.zeros((li.shape[0], 4), dtype=torch.float32, device=dev)
@@ -58,10 +60,8 @@ def refine_lines(camera, state: ms.MapState, *, num_iters: int = 4, damping: flo
         chi2 = torch.sum(r * r, dim=-1)
         wgt = torch.where(obs_valid, robust.huber_weight(chi2, robust.CHI2_2D), zero)
         Jw = J * wgt[:, None, None]
-        H = torch.zeros((L2 + 1, 4, 4), dtype=torch.float32, device=dev).index_add_(
-            0, tgt, torch.einsum("ori,orj->oij", Jw, J))[:L2]
-        b = torch.zeros((L2 + 1, 4), dtype=torch.float32, device=dev).index_add_(
-            0, tgt, -torch.einsum("ori,or->oi", Jw, r))[:L2]
+        H = segment_sum(tgt, torch.einsum("ori,orj->oij", Jw, J), L2 + 1, plan=plan)[:L2]
+        b = segment_sum(tgt, -torch.einsum("ori,or->oi", Jw, r), L2 + 1, plan=plan)[:L2]
         lam = damping * torch.clamp(
             torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 4.0, min=1e-6)
         delta = linalg.solve(H + (lam + 1e-8) * eye4, b)

@@ -30,6 +30,8 @@ from structure_plp_slam_tpu_torch.utils.types import (
     HAMMING_MASKED,
     nonzero_static,
     scatter_set,
+    segment_plan,
+    segment_sum,
     topk_stable,
 )
 
@@ -257,7 +259,7 @@ def refresh_landmark_stats(state: ms.MapState, ind=None, *, scale_factor: float 
     ``max_obs`` observations. ``window_kfs`` ([W] keyframe ids, -1 =
     padding) restricts only the descriptor refresh; it then overwrites
     only landmarks whose whole observer set lies in the window."""
-    K, N = state.kf_lm_idx.shape
+    K = state.kf_lm_idx.shape[0]
     L = state.lm_pos.shape[0]
     M = max_obs
     dev = state.device
@@ -273,10 +275,10 @@ def refresh_landmark_stats(state: ms.MapState, ind=None, *, scale_factor: float 
     lm_safe_all = torch.where(obs_ok_all, state.kf_lm_idx, L)
     sf32 = torch.tensor(scale_factor, dtype=torch.float32, device=dev)
     w_up = torch.where(obs_ok_all, sf32**lvl_all, 0.0)
-    rows = torch.arange(K, device=dev)[:, None].expand(K, N)
-    ind_up = torch.zeros((K, L + 1), dtype=torch.float32, device=dev)
-    ind_up.index_put_((rows, lm_safe_all), w_up, accumulate=True)
-    ind_up = ind_up[:, :L]
+    bins = (torch.arange(K, device=dev)[:, None] * (L + 1) + lm_safe_all).reshape(-1)
+    ind_up = segment_sum(bins, w_up.reshape(-1), K * (L + 1),
+                         plan=segment_plan(bins, K * (L + 1), keep=obs_ok_all.reshape(-1)))
+    ind_up = ind_up.reshape(K, L + 1)[:, :L]
     # |X - C|^2 = |X|^2 - 2 C.X + |C|^2 (XLA fuses the first sum, which is
     # exact here: 2 C.X is).
     cross = linalg.einsum_fma("ki,li->kl", C, state.lm_pos)

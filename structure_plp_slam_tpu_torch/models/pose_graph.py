@@ -5,8 +5,9 @@ optimize/graph_optimizer.cc: a g2o Sim3 pose graph over the spanning tree,
 loop edges and strong covisibility edges). Up to a few hundred keyframes
 the normal system ``[7K, 7K]`` is dense: per-edge Jacobian blocks come
 from ``torch.func.vmap(torch.func.jacfwd(...))`` of the Sim3 residual, are
-scattered into ``[K, K, 7, 7]`` blocks (``index_put_(accumulate=True)``)
-and one Cholesky solves the graph per Gauss-Newton step. Beyond that,
+summed into ``[K, K, 7, 7]`` blocks (``utils/types.segment_sum``:
+``index_add_`` on the CPU, a fixed order on the card) and one Cholesky
+solves the graph per Gauss-Newton step. Beyond that,
 ``optimize_pose_graph_pcg`` runs matrix-free PCG with the chain part of
 the Hessian as a block-tridiagonal preconditioner, solved by block cyclic
 reduction.
@@ -26,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from structure_plp_slam_tpu_torch.ops import lie, linalg
+from structure_plp_slam_tpu_torch.utils.types import segment_plan, segment_sum
 
 
 class PoseGraphProblem(NamedTuple):
@@ -98,6 +100,12 @@ def optimize_pose_graph(prob: PoseGraphProblem, *, num_iters: int = 20,
     free = prob.valid & ~prob.fixed
     free_f = free.to(torch.float32)
     ei, ej = prob.edge_i, prob.edge_j
+    # Each edge adds its blocks (i, i), (j, j), (i, j), (j, i) and its
+    # right-hand sides at i, j in this order; an invalid edge adds zeros.
+    h_ids = torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei])
+    b_ids = torch.cat([ei, ej])
+    h_plan = segment_plan(h_ids, K * K, keep=prob.edge_valid.repeat(4))
+    b_plan = segment_plan(b_ids, K, keep=prob.edge_valid.repeat(2))
     R, t, s = prob.R, prob.t, prob.s
     chi2 = None
     for _ in range(num_iters):
@@ -105,14 +113,13 @@ def optimize_pose_graph(prob: PoseGraphProblem, *, num_iters: int = 20,
         w = torch.where(prob.edge_valid, prob.edge_weight, 0.0)
         JiT_w = Ji * w[:, None, None]
         JjT_w = Jj * w[:, None, None]
-        H = torch.zeros((K, K, 7, 7), dtype=torch.float32, device=dev)
-        H.index_put_((ei, ei), torch.einsum("eri,erj->eij", JiT_w, Ji), accumulate=True)
-        H.index_put_((ej, ej), torch.einsum("eri,erj->eij", JjT_w, Jj), accumulate=True)
-        H.index_put_((ei, ej), torch.einsum("eri,erj->eij", JiT_w, Jj), accumulate=True)
-        H.index_put_((ej, ei), torch.einsum("eri,erj->eij", JjT_w, Ji), accumulate=True)
-        b = torch.zeros((K, 7), dtype=torch.float32, device=dev)
-        b.index_put_((ei,), -torch.einsum("eri,er->ei", JiT_w, r), accumulate=True)
-        b.index_put_((ej,), -torch.einsum("eri,er->ei", JjT_w, r), accumulate=True)
+        H = segment_sum(h_ids, torch.cat([torch.einsum("eri,erj->eij", JiT_w, Ji),
+                                          torch.einsum("eri,erj->eij", JjT_w, Jj),
+                                          torch.einsum("eri,erj->eij", JiT_w, Jj),
+                                          torch.einsum("eri,erj->eij", JjT_w, Ji)]),
+                        K * K, plan=h_plan).reshape(K, K, 7, 7)
+        b = segment_sum(b_ids, torch.cat([-torch.einsum("eri,er->ei", JiT_w, r),
+                                          -torch.einsum("eri,er->ei", JjT_w, r)]), K, plan=b_plan)
 
         H = H * free_f[:, None, None, None] * free_f[None, :, None, None]
         H[diag, diag] += torch.where(free[:, None, None], 0.0, 1.0) * eye7
@@ -274,6 +281,11 @@ def optimize_pose_graph_pcg(prob: PoseGraphProblem, raw_of_comp, edge_chain_pos,
     chain_ok = edge_chain_pos >= 0
     chain_dst = torch.where(chain_ok, torch.clamp(edge_chain_pos, 0, K - 1), K)
     ei, ej = prob.edge_i, prob.edge_j
+    # The right-hand side, the block diagonal and the off-diagonal product
+    # each add an edge's terms at i, then at j; an invalid edge adds zeros.
+    b_ids = torch.cat([ei, ej])
+    b_plan = segment_plan(b_ids, K, keep=prob.edge_valid.repeat(2))
+    c_plan = segment_plan(chain_dst, K + 1, keep=chain_ok)
     R, t, s = prob.R, prob.t, prob.s
     chi2 = None
     for _ in range(num_iters):
@@ -288,28 +300,24 @@ def optimize_pose_graph_pcg(prob: PoseGraphProblem, raw_of_comp, edge_chain_pos,
         A_jj = torch.einsum("eri,erj->eij", JjT_w, Jj * f_j[:, None, None])
         A_ij = torch.einsum("eri,erj->eij", JiT_w, Jj * f_j[:, None, None])
 
-        b = torch.zeros((K, 7), dtype=torch.float32, device=dev)
-        b.index_put_((ei,), -torch.einsum("eri,er->ei", JiT_w, r), accumulate=True)
-        b.index_put_((ej,), -torch.einsum("eri,er->ei", JjT_w, r), accumulate=True)
+        b = segment_sum(b_ids, torch.cat([-torch.einsum("eri,er->ei", JiT_w, r),
+                                          -torch.einsum("eri,er->ei", JjT_w, r)]), K, plan=b_plan)
         b = b * free_f[:, None]
 
         # The block diagonal (damping, and the preconditioner's diagonal).
-        D = torch.zeros((K, 7, 7), dtype=torch.float32, device=dev)
-        D.index_put_((ei,), A_ii, accumulate=True)
-        D.index_put_((ej,), A_jj, accumulate=True)
+        D = segment_sum(b_ids, torch.cat([A_ii, A_jj]), K, plan=b_plan)
         lam = damping * torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1).sum(-1) / 7.0, min=1e-6)
         D = torch.where(free[:, None, None], D + lam[:, None, None] * eye7, eye7)
 
         def matvec(x):
             xf = x * free_f[:, None]
-            y = torch.einsum("kij,kj->ki", D, xf)
-            y = y.index_put((ei,), torch.einsum("eij,ej->ei", A_ij, xf[ej]), accumulate=True)
-            y = y.index_put((ej,), torch.einsum("eji,ej->ei", A_ij, xf[ei]), accumulate=True)
+            y = segment_sum(b_ids, torch.cat([torch.einsum("eij,ej->ei", A_ij, xf[ej]),
+                                              torch.einsum("eji,ej->ei", A_ij, xf[ei])]), K,
+                            plan=b_plan, base=torch.einsum("kij,kj->ki", D, xf))
             return torch.where(free[:, None], y, x)
 
-        C_t = torch.zeros((K + 1, 7, 7), dtype=torch.float32, device=dev)
-        C_t.index_put_((chain_dst,), torch.where(chain_ok[:, None, None], A_ij, 0.0),
-                       accumulate=True)
+        C_t = segment_sum(chain_dst, torch.where(chain_ok[:, None, None], A_ij, 0.0), K + 1,
+                          plan=c_plan)
         precond = _chain_preconditioner(D, C_t[:K], comp_idx, comp_ok)
         dx = pcg(matvec, precond, b, cg_iters)
         R, t, s = _update(prob, R, t, s, dx, free)

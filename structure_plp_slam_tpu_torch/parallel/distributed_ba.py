@@ -252,6 +252,8 @@ def _shards(mesh: LandmarkMesh, sp: ShardedBAProblem):
             obs_info=c["obs_inv_sigma_sq"], pair_o1=c["pair_o1"], pair_o2=c["pair_o2"],
             num_obs=sp.obs_cam.shape[0] // n, num_pairs=sp.pair_o1.shape[0] // n)
         live = c["obs_valid"] & cam_valid[data.obs_cam] & c["lm_valid"][data.obs_lm]
+        data = gba.with_plans(data, sp.cam_pose.shape[0], c["lm_valid"].shape[0], live=live,
+                              pair_valid=c["pair_valid"])
         out.append(_Shard(cam_pose=sp.cam_pose.to(d), free=(~sp.cam_fixed.to(d)) & cam_valid,
                           lm_valid=c["lm_valid"], data=data, live=live,
                           pair_valid=c["pair_valid"]))
@@ -359,20 +361,21 @@ def make_distributed_ba_pcg(mesh: LandmarkMesh, camera, *, num_iters: int = 10,
 
     def run(sp: ShardedBAProblem, chain_o1, chain_o2, chain_pos, comp_idx, comp_ok):
         K = sp.cam_pose.shape[0]
-        chain = list(zip(*(mesh.split(a) for a in (chain_o1, chain_o2, chain_pos))))
+        chain = [(o1, o2, cpos, gba.chain_plan(o1, cpos, K)) for o1, o2, cpos in
+                 zip(*(mesh.split(a) for a in (chain_o1, chain_o2, chain_pos)))]
         comp = list(zip(mesh.replicate(comp_idx), mesh.replicate(comp_ok)))
 
         def camera_step(shards, blocks):
             eye6 = [torch.eye(6, dtype=torch.float32, device=d) for d in mesh.devices]
             free_f = [s.free.to(torch.float32) for s in shards]
             red, UHinv, selfS, C_t = [], [], [], []
-            for s, f, (U_o, _, _, Hll_inv, bl), (o1, o2, cpos) in zip(shards, free_f, blocks,
-                                                                       chain):
+            for s, f, (U_o, _, _, Hll_inv, bl), (o1, o2, cpos, cplan) in zip(
+                    shards, free_f, blocks, chain):
                 r, UH = gba._schur_reduction(s.data, U_o, Hll_inv, bl, K)
                 red.append(r)
                 UHinv.append(UH)
                 selfS.append(gba._self_blocks(s.data, U_o, UH, K))
-                C_t.append(gba._chain_blocks(s.data, U_o, UH, f, o1, o2, cpos, K))
+                C_t.append(gba._chain_blocks(s.data, U_o, UH, f, o1, o2, cpos, K, plan=cplan))
             Hcc_d = mesh.replicated(lambda H: gba._damped(H, damping),
                                     mesh.psum([b[1] for b in blocks]))
             rhs = mesh.replicated(lambda b, r, f: (b - r) * f[:, None],

@@ -11,11 +11,15 @@ Port of structure_plp_slam_tpu/utils/types.py. Policy:
 
 It also holds the helpers that stand in for JAX idioms with no direct
 torch counterpart: a static-size ``nonzero``, a stable top-k and a
-scatter-set with a fixed rule for duplicate indices, and a sum whose
-order on the CPU does not follow torch's thread count.
+scatter-set with a fixed rule for duplicate indices, a sum whose order on
+the CPU does not follow torch's thread count, and a segment sum whose
+order on the card is fixed.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,6 +67,71 @@ def fixed_order_sum(fn, *xs, dim: int = 0):
     for part in parts[1:]:
         out = out + part
     return out
+
+
+def _index_add_route(t) -> bool:
+    """Whether ``segment_sum`` adds with ``index_add_`` for tensors on
+    ``t``'s device: on the CPU, whose ``index_add_`` adds each bin's rows
+    in row order."""
+    return t.device.type == "cpu"
+
+
+class SegmentPlan(NamedTuple):
+    """How ``segment_sum`` visits the rows of one index set on the card,
+    built once (``segment_plan``) and reused while the ids stay the same:
+    either the rows sorted by bin (``perm``; bin b's rows are ``perm[
+    offsets[b]:offsets[b + 1]]``, in row order) or, with ``grid`` > 0, a
+    promise that the ids are ``arange(n)`` each repeated ``grid`` times."""
+
+    perm: torch.Tensor = None     # [O] i64
+    offsets: torch.Tensor = None  # [n + 1] i64
+    grid: int = 0
+
+
+def segment_plan(ids, n: int, *, keep=None, grid: bool = False):
+    """The plan of ``segment_sum(ids, ..., n)`` on the card; ``None`` on the
+    CPU, where ``index_add_`` needs none. ``keep`` ([O] bool): rows that
+    may add something; the others must add zero (a dead row's zero weight),
+    and the plan leaves them out, so that padding piled into one bin costs
+    nothing. ``grid``: the ids are ``arange(n)`` each repeated O / n times
+    in order (a [n, O / n] layout), summed by a reshape. Adds no host
+    sync: the sizes are the tensors' own."""
+    if _index_add_route(ids):
+        return None
+    if grid:
+        return SegmentPlan(grid=ids.shape[0] // n)
+    key = ids if keep is None else torch.where(keep, ids, n)
+    key, perm = torch.sort(key, stable=True)
+    return SegmentPlan(perm, torch.searchsorted(key, torch.arange(n + 1, device=ids.device)))
+
+
+def segment_sum(ids, vals, n: int, *, plan: SegmentPlan = None, base=None):
+    """Sum the rows of ``vals [O, ...]`` into ``n`` bins by ``ids [O]`` (in
+    ``[0, n)``), onto ``base [n, ...]`` when given, else onto zeros.
+
+    On the CPU this is ``index_add_``, which adds each bin's rows in row
+    order onto its start. On the card each bin's rows are summed in one
+    fixed order, the same on every run: with ``plan`` from
+    ``segment_plan`` (built here when not given), the rows are gathered in
+    bin order and ``torch.segment_reduce`` adds each bin's rows one after
+    another in row order, starting from zero; a ``grid`` plan sums the
+    [n, O / n] layout with ``torch.sum``. ``base`` is then added to the
+    sums. ``index_add_`` on the card would add in whatever order its
+    atomics land."""
+    if _index_add_route(vals):
+        out = vals.new_zeros((n,) + tuple(vals.shape[1:])) if base is None else base.clone()
+        return out.index_add_(0, ids, vals)
+    plan = segment_plan(ids, n) if plan is None else plan
+    tail = tuple(vals.shape[1:])
+    if plan.grid:
+        out = vals.reshape((n, plan.grid) + tail).sum(1)
+    else:
+        # 2-D rows: segment_reduce then runs one thread per bin and column,
+        # adding that bin's rows in order.
+        rows = vals.reshape(vals.shape[0], math.prod(tail))[plan.perm]
+        out = torch.segment_reduce(rows, "sum", offsets=plan.offsets, axis=0,
+                                   unsafe=True).reshape((n,) + tail)
+    return out if base is None else base + out
 
 
 def round_up(x: int, m: int) -> int:
