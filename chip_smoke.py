@@ -174,7 +174,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    source: poses within 1e-4, points within 1e-3 m; (g)
    rgbd_chain_ba_checks: the same for the main path's RGB-D System's
    first chain (its stereo rows from the depth: the C source's 3-row
-   arithmetic), with (f)'s bounds;
+   arithmetic), with (f)'s bounds; (h) rgbd_k8_chain_ba_checks: the same
+   for the 320x240 RGB-D System of the tier-1 tests (8 keyframes, so a
+   16-camera window), with (g)'s bounds; (e)-(h) also fail if the C route
+   meets a shape outside ``ops/ba_cpu``'s tables;
 20. one input, one result (determinism_checks): the card's floating-point
    sums run in one fixed order (utils/types.segment_sum) and no global
    torch flag is set, so each of these, run again in fresh objects of
@@ -1785,14 +1788,17 @@ def linalg_checks(device="cuda"):
 
 
 @functools.lru_cache(maxsize=None)
-def _system_ba_calls(setup="mono"):
+def _system_ba_calls(setup="mono", width=640):
     """The monocular System's init BA and first keyframe chain BA on the CPU
     (640x480, 1000 keypoints over 8 levels, numpy seed 42, phase 7's
     capacities): ``{"init": ..., "chain": ...}``, each the ``mapper.local_ba``
     call's (camera, state, slot, inverse sigmas) and keywords, copied when
     the call was made. ``setup="rgbd"``: the main path's RGB-D System at
     the same width and capacities (its camera, focal_x_baseline 40, and
-    ``make_sequence``'s 0.06 m a frame), whose first chain is the only call."""
+    ``make_sequence``'s 0.06 m a frame), whose first chain is the only call.
+    ``width=320``: the tier-1 System tests' 320x240 camera (fx 260,
+    focal_x_baseline 26), 600 keypoints over 4 levels, 8 keyframes and 4096
+    landmarks, so the chain's window has 16 cameras."""
     from structure_plp_slam_tpu_torch.camera import Camera, CameraModel, CameraSetup
     from structure_plp_slam_tpu_torch.config import Config
     from structure_plp_slam_tpu_torch.data import map_state
@@ -1802,10 +1808,19 @@ def _system_ba_calls(setup="mono"):
     from structure_plp_slam_tpu_torch.testing import synthetic_scene
 
     rgbd = setup == "rgbd"
-    depth = dict(focal_x_baseline=40.0, depth_threshold=40.0, depthmap_factor=1.0) if rgbd else {}
+    small = width == 320
+    depth = dict(focal_x_baseline=26.0 if small else 40.0,
+                 depth_threshold=400.0 if small else 40.0, depthmap_factor=1.0) if rgbd else {}
+    if small:
+        intr = dict(cols=320, rows=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
+        orb, sizes = dict(max_num_keypts=600, num_levels=4), dict(max_keyframes=8,
+                                                                   max_landmarks=4096)
+    else:
+        intr = dict(cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5)
+        orb, sizes = dict(max_num_keypts=1000, num_levels=8), dict(max_keyframes=32,
+                                                                   max_landmarks=8192)
     cam = Camera(name="b", setup=CameraSetup.RGBD if rgbd else CameraSetup.MONOCULAR,
-                 model=CameraModel.PERSPECTIVE, cols=640, rows=480, fx=525.0, fy=525.0,
-                 cx=319.5, cy=239.5, fps=30.0, **depth)
+                 model=CameraModel.PERSPECTIVE, fps=30.0, **intr, **depth)
     frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12,
                                               step=0.06 if rgbd else 0.08)
     want = ("chain",) if rgbd else ("init", "chain")
@@ -1822,9 +1837,8 @@ def _system_ba_calls(setup="mono"):
                                 {n: clone(v) for n, v in k.items()})
         return local_ba(camera, state, slot, isg, **k)
 
-    slam = System(Config(camera=cam, orb=OrbParams(max_num_keypts=1000, num_levels=8), raw={}),
-                  device="cpu", enable_loop_closing=False, max_keyframes=32,
-                  max_landmarks=8192, max_kf_interval=3)
+    slam = System(Config(camera=cam, orb=OrbParams(**orb), raw={}), device="cpu",
+                  enable_loop_closing=False, max_kf_interval=3, **sizes)
     mapper.local_ba = record
     try:
         slam.startup()
@@ -1857,23 +1871,29 @@ def _local_ba_on(call, device):
 def _ba_card_vs_cpu(name, call, device):
     """One recorded ``local_ba`` call on the CPU (its C route) and on
     ``device`` (the PyTorch iteration there): the largest pose and point
-    differences, the share of equal associations and how far the CPU solve
-    moved the poses; gated at 1e-4 / 1e-3 m / 99%."""
+    differences, the share of equal associations, how far the CPU solve
+    moved the poses and the window's camera count; gated at 1e-4 / 1e-3 m /
+    99%, and on the C route meeting no shape outside ``ops/ba_cpu``'s
+    tables."""
     from structure_plp_slam_tpu_torch.data import map_state
     from structure_plp_slam_tpu_torch.models import mapper
+    from structure_plp_slam_tpu_torch.ops import ba_cpu
 
     (camera, state, slot, isg), kw = call
-    host = map_state.to_numpy(mapper.local_ba(camera, state, slot, isg, **kw)[0])
+    with ba_cpu.unmeasured_shapes() as met:
+        host, _, cams = mapper.local_ba(camera, state, slot, isg, **{**kw, "return_cams": True})
+    host = map_state.to_numpy(host)
     card = _local_ba_on(call, device)
     moved = float(np.abs(host["kf_pose"] - map_state.to_numpy(state)["kf_pose"]).max())
     res = {"pose_abs": float(np.abs(card["kf_pose"] - host["kf_pose"]).max()),
            "points_abs": float(np.abs(card["lm_pos"] - host["lm_pos"]).max()),
            "obs_equal_share": float((card["kf_lm_idx"] == host["kf_lm_idx"]).mean()),
-           "pose_moved": moved, "slot": int(slot)}
-    print(f"{name} (640x480, seed 42, keyframe {slot}): card against the CPU's XLA:CPU "
-          f"iteration: {res}")
+           "pose_moved": moved, "slot": int(slot), "window_cameras": int(cams.shape[0]),
+           "unmeasured_shapes": sorted(map(str, met))}
+    print(f"{name} ({camera.cols}x{camera.rows}, seed 42, keyframe {slot}): card against the "
+          f"CPU's XLA:CPU iteration: {res}")
     gate(name, res["pose_abs"] < 1e-4 and res["points_abs"] < 1e-3
-         and res["obs_equal_share"] >= 0.99 and moved > 0, f"{res}")
+         and res["obs_equal_share"] >= 0.99 and moved > 0 and not met, f"{res}")
     return res
 
 
@@ -1964,6 +1984,28 @@ def rgbd_chain_ba_checks(device="cuda"):
     res["stereo_share"] = float((state.kf_xr[slot][kp] >= 0).float().mean())
     gate("rgbd_chain_ba", res["stereo_share"] > 0.5, f"stereo share {res['stereo_share']}")
     return res, calls["chain"]
+
+
+def rgbd_k8_chain_ba_checks(device="cuda"):
+    """Phase 19 (h): phase 19 (g) at the window most tier-1 System tests
+    build. The RGB-D System of tests/test_torch_system.py (320x240, 600
+    keypoints over 4 levels, numpy seed 42, 8 keyframes and 4096 landmarks,
+    so a window of 16 cameras: ``_system_ba_calls("rgbd", 320)``) runs on the
+    CPU to its first keyframe chain with a local BA; that call runs again on
+    the card (the PyTorch iteration) and on the CPU (``ops/ba_cpu``'s C
+    source at the 16-camera layout: the Schur product in blocks of 1024, two
+    lanes each): phase 19 (g)'s bounds and stereo share. Returns the largest
+    differences."""
+    calls = _system_ba_calls("rgbd", 320)
+    if "chain" not in calls:
+        raise AssertionError("phase 19 (h): the RGB-D System ran no keyframe chain BA")
+    (_, state, slot, _), _ = calls["chain"]
+    res = _ba_card_vs_cpu("rgbd_k8_chain_ba", calls["chain"], device)
+    kp = state.kf_kp_valid[slot] & (state.kf_lm_idx[slot] >= 0)
+    res["stereo_share"] = float((state.kf_xr[slot][kp] >= 0).float().mean())
+    gate("rgbd_k8_chain_ba", res["stereo_share"] > 0.5 and res["window_cameras"] == 16,
+         f"stereo share {res['stereo_share']}, {res['window_cameras']} window cameras")
+    return res
 
 
 def _clone(x):
@@ -3289,6 +3331,8 @@ def main():
     phase_done("19 (a-f)")
     ops["rgbd_chain_ba"], rgbd_call = rgbd_chain_ba_checks()
     phase_done("19 (g)")
+    ops["rgbd_k8_chain_ba"] = rgbd_k8_chain_ba_checks()
+    phase_done("19 (h)")
 
     # ---- 20. one input, one result ----------------------------------------
     determinism = determinism_checks(cam, cfg, rgbd_call, loop_calls)

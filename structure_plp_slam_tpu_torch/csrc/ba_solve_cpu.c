@@ -1,13 +1,14 @@
 /* One Gauss-Newton iteration of the local bundle adjustment
  * (models/bundle_adjustment.py ba_solve) on the CPU, computed as XLA:CPU
  * compiles the JAX package's: the two-view init's jitted mapper.local_ba (C =
- * 8 window cameras) and the keyframe chain's (system.py _kf_chain, C = 32),
- * each over M = 4096 landmarks and a dense [C, Ng] observation grid. Both
+ * 8 window cameras) and the keyframe chain's (system.py _kf_chain, C = 32, or
+ * 16 at 8 keyframes), each over M = 4096 (or 2048) landmarks and a dense
+ * [C, Ng] observation grid. Both
  * programs compile the iteration into the same kernels, and so do the
  * monocular, RGB-D and stereo Systems' chains (the camera's focal_x_baseline
  * is a constant of the compile, 0 for a monocular camera); what the
  * vectorizer makes of a kernel follows its shapes, and the caller passes
- * those choices (the Schur product's block length, the back-substitution's
+ * those choices (the Schur product's block layout, the back-substitution's
  * accumulators).
  *
  * XLA fuses each element-wise expression into one kernel and LLVM turns a
@@ -38,8 +39,10 @@
  *     run summed in order, the runs added in order); Hll and bl then sum the
  *     bins over the cameras in order from 0;
  *   the Schur product sum_{m,k} WHinv W over the contraction index K = k M
- *     + m: consecutive blocks of K (the caller passes the block length of
- *     the shape), each one chain from 0, the blocks added in order;
+ *     + m: consecutive blocks of K, each summed in interleaved lanes (entry
+ *     K of a block into lane (K - block start) % lanes), each lane one chain
+ *     from 0, the lanes added in order, the blocks added in order (the
+ *     caller passes the shape's block length and lane count);
  *   the right-hand side's dot over the same K: 8 lanes (K % 8), each a chain,
  *     added ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7));
  *   W^T dx_c over the 6C camera entries: groups of 8 entries, each group's
@@ -102,22 +105,25 @@ static float residual_chi2(const cam_t* c, const float* pc, const float* uv, flo
 
 /* The Schur product S_red[(c,i), (d,j)] = sum_K WH[m,c,i,k] W[m,d,j,k] over
  * K = k M + m for WH, W [M, C, 6, 3]: consecutive blocks of kblock entries of
- * K, each one chain from 0, the blocks added in order. The (landmark, camera)
- * blocks with cam_nz[m * C + c] == 0 (W[m, c] all zero, and so WH[m, c])
- * add exact zeros to the chains and are skipped (cam_nz NULL: none).
- * Returns 0, or 2 on allocation failure. */
-int ba_schur_cpu(int C, int M, int kblock, const float* WH, const float* W,
+ * K, entry K of a block into lane (K - block start) % klanes, each lane one
+ * chain from 0, the lanes added in order, the blocks added in order. The
+ * (landmark, camera) blocks with cam_nz[m * C + c] == 0 (W[m, c] all zero,
+ * and so WH[m, c]) add exact zeros to the chains and are skipped (cam_nz
+ * NULL: none). Returns 0, or 2 on allocation failure or klanes < 1. */
+int ba_schur_cpu(int C, int M, int kblock, int klanes, const float* WH, const float* W,
                  const uint8_t* cam_nz, float* Sr) {
   const int D = 6 * C;
-  float* acc = malloc(sizeof(float) * (size_t)D * D);
+  if (klanes < 1) return 2;
+  float* acc = malloc(sizeof(float) * (size_t)klanes * D * D);
   int* rows = malloc(sizeof(int) * (size_t)D);
   if (!acc || !rows) { free(acc); free(rows); return 2; }
   const long Ktot = 3L * M;
   for (long b0 = 0; b0 < Ktot; b0 += kblock) {
     long b1 = b0 + kblock < Ktot ? b0 + kblock : Ktot;
-    memset(acc, 0, sizeof(float) * (size_t)D * D);
+    memset(acc, 0, sizeof(float) * (size_t)klanes * D * D);
     for (long K = b0; K < b1; K++) {
       int k = (int)(K / M), m = (int)(K % M);
+      float* lane = acc + (size_t)((K - b0) % klanes) * D * D;
       int nr = 0;
       for (int c = 0; c < C; c++)
         if (!cam_nz || cam_nz[(size_t)m * C + c])
@@ -129,11 +135,15 @@ int ba_schur_cpu(int C, int M, int kblock, const float* WH, const float* W,
         float a = wh[3 * p];
         for (int b_i = 0; b_i < nr; b_i++) {
           int q = rows[b_i];
-          acc[p * D + q] = fmaf(a, w[3 * q], acc[p * D + q]);
+          lane[p * D + q] = fmaf(a, w[3 * q], lane[p * D + q]);
         }
       }
     }
-    for (int p = 0; p < D * D; p++) Sr[p] = b0 == 0 ? acc[p] : Sr[p] + acc[p];
+    for (int p = 0; p < D * D; p++) {
+      float t = acc[p];
+      for (int l = 1; l < klanes; l++) t = t + acc[(size_t)l * D * D + p];
+      Sr[p] = b0 == 0 ? t : Sr[p] + t;
+    }
   }
   free(acc);
   free(rows);
@@ -171,8 +181,8 @@ static float wt_dot(const float* w, int j, const float* dx, int D, int wt_accs,
 /* The normal equations and their Schur complement (ba_solve's iteration up
  * to the camera solve). Inputs: camf (cam_t), the window's poses P [C, 3, 4]
  * and points X [M, 3], the observation grid (obs_lm [C * Ng], uv [C * Ng, 2],
- * xr [C * Ng] (< 0: monocular), isg, live), the free cameras; kblock, the
- * Schur product's block length.
+ * xr [C * Ng] (< 0: monocular), isg, live), the free cameras; kblock and
+ * klanes, the Schur product's block length and lane count.
  * Outputs: S [6C, 6C] and rhs [6C] of the camera system, and what the back-
  * substitution needs: Hll^-1 [M, 3, 3], W [M, C, 6, 3], bl [M, 3]; gblock,
  * the grid contraction's run length over a camera row. With
@@ -181,9 +191,9 @@ static float wt_dot(const float* w, int j, const float* dx, int D, int wt_accs,
  * Schur product [6C, 6C]. Returns 0, or 2 on allocation failure. */
 int ba_normal_cpu(int C, int M, int Ng, const float* camf, const float* P, const float* X,
                   const int64_t* obs_lm, const float* uv, const float* xr, const float* isg,
-                  const uint8_t* live, const uint8_t* freecam, int kblock, int gblock, float* S,
-                  float* rhs, float* Hinv, float* W, float* bl, float* obs_tr, float* lm_tr,
-                  float* cam_tr) {
+                  const uint8_t* live, const uint8_t* freecam, int kblock, int klanes,
+                  int gblock, float* S, float* rhs, float* Hinv, float* W, float* bl,
+                  float* obs_tr, float* lm_tr, float* cam_tr) {
   const cam_t* c = (const cam_t*)camf;
   const int O = C * Ng, D = 6 * C;
   float* Hcc_o = malloc(sizeof(float) * (size_t)O * 42);
@@ -350,7 +360,11 @@ int ba_normal_cpu(int C, int M, int Ng, const float* camf, const float* P, const
   {
     float* Sr = malloc(sizeof(float) * (size_t)D * D);
     float lane[8][D];
-    if (!Sr || ba_schur_cpu(C, M, kblock, WH, W, cam_nz, Sr)) { free(Sr); rc = 2; goto out_hcc; }
+    if (!Sr || ba_schur_cpu(C, M, kblock, klanes, WH, W, cam_nz, Sr)) {
+      free(Sr);
+      rc = 2;
+      goto out_hcc;
+    }
     memset(lane, 0, sizeof lane);
     const long Ktot = 3L * M;
     for (long K = 0; K < Ktot; K++) {

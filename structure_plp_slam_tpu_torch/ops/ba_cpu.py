@@ -5,8 +5,9 @@ stereo Systems.
 
 XLA:CPU compiles the JAX System's init BA (the jitted ``mapper.local_ba``
 over the two init keyframes: C = 8 window cameras) and the keyframe chain's
-(``system.py``'s jitted ``_kf_chain``: C = 32), each over M = 4096 landmarks
-and the observations as a dense [C, Ng] grid, into kernels whose fused
+(``system.py``'s jitted ``_kf_chain``: C = 2 min(16, max_keyframes), 32 or,
+at 8 keyframes, 16), each over M = min(4096, max_landmarks) landmarks and
+the observations as a dense [C, Ng] grid, into kernels whose fused
 multiply-adds and summation orders follow each kernel; the C source repeats
 one Gauss-Newton iteration of that compile operation for operation (``python
 -m tests.xla_init_ba`` and ``python -m tests.xla_chain_ba`` dump the programs
@@ -31,6 +32,7 @@ a stereo row, ``obs_xr >= 0``), and no line landmarks.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import logging
 import threading
@@ -45,32 +47,41 @@ _log = logging.getLogger(__name__)
 
 SOURCE = host_c.CSRC / "ba_solve_cpu.c"
 
-# The Schur product's block length over its contraction index K = k M + m,
-# by (6C, 3M): XLA:CPU's dot sums K in consecutive blocks of this length (the
-# last one shorter), each block one chain. Measured with jax / jaxlib 0.9.0 on
-# an x86-64 Xeon with AVX-512 (tests/xla_init_ba.py, tests/xla_chain_ba.py;
-# tests/test_torch_init_ba_xla.py and test_torch_chain_ba_xla.py hold the
-# entries against XLA's dot).
-_SCHUR_BLOCKS = {(48, 12288): 682, (192, 12288): 512}
+# The Schur product's layout over its contraction index K = k M + m, by (6C,
+# 3M): XLA:CPU's dot sums K in consecutive blocks of the first length (the
+# last one shorter), each block in the second number of interleaved lanes,
+# each lane one chain, the lanes and then the blocks added in order. Measured
+# with jax / jaxlib 0.9.0 on an x86-64 Xeon with AVX-512 (tests/xla_init_ba.py,
+# tests/xla_chain_ba.py; tests/test_torch_init_ba_xla.py,
+# test_torch_chain_ba_xla.py and test_torch_chain_ba_xla_c16.py hold the
+# entries against XLA's dot). C = 8, 16 and 32 window cameras at M = 4096 and
+# the growth maps' M = 2048.
+_SCHUR_BLOCKS = {(48, 12288): (682, 1), (96, 12288): (1024, 2), (192, 12288): (512, 1),
+                 (48, 6144): (682, 1), (96, 6144): (1024, 2), (192, 6144): (512, 1)}
 # The update's layout by 6C, as XLA:CPU's vectorizer lays its kernels out:
 # the back-substitution W^T dx_c ([3M, 6C] x [6C]) in accumulators of 8 lanes
 # through the groups of 8 camera entries in an order (None for in order), and
 # how many leading cameras the camera step's squared norms (the clamp's two,
 # the rotation angle's) sum as rounded squares in a vector loop, the rest as
 # fused chains. At 48 (the init): one accumulator through the groups 0, 2, 4,
-# 3, 1, 5, every norm fused; at 192 (the chain): four accumulators, group g
-# into g % 4, cameras 0-23 rounded (the dumped bitcast_dot_fusion,
+# 3, 1, 5, every norm fused; at 96 (the chain of a System with 8 keyframes):
+# one accumulator through the groups 0, 4, 8, 5, 1, 9, 6, 2, 10, 7, 3, 11,
+# cameras 0-7 rounded; at 192 (the chain): four accumulators, group g into g
+# % 4, cameras 0-23 rounded (the dumped bitcast_dot_fusion,
 # maximum_rsqrt_fusion and multiply_reduce_fusion kernels;
-# tests/xla_chain_ba.py lists them, tests/test_torch_chain_ba_xla.py holds
-# both against XLA's).
-_UPDATE_LAYOUT = {48: (1, (0, 2, 4, 3, 1, 5), 0), 192: (4, None, 24)}
+# tests/xla_chain_ba.py lists them, tests/test_torch_chain_ba_xla.py and
+# test_torch_chain_ba_xla_c16.py hold them against XLA's).
+_UPDATE_LAYOUT = {48: (1, (0, 2, 4, 3, 1, 5), 0),
+                  96: (1, (0, 4, 8, 5, 1, 9, 6, 2, 10, 7, 3, 11), 8),
+                  192: (4, None, 24)}
 # The grid contraction's run length by (C, Ng, M): XLA:CPU's library dot of
 # the one-hot grid ([C, Ng, M] against [C, Ng, 30]) sums each camera row in
 # two runs, each one chain, the runs added in order; it decides where a
 # landmark sits three times in one keyframe row (tests/xla_chain_ba.py
-# probes it).
-_GRID_BLOCKS = {(8, 640, 4096): 320, (32, 640, 4096): 320, (8, 616, 4096): 312,
-                (32, 616, 4096): 312}
+# probes it). C = 8, 16 and 32 cameras, 640 and 616 slots a row, M = 4096 and
+# 2048 landmarks.
+_GRID_BLOCKS = {(C, Ng, M): {640: 320, 616: 312}[Ng] for C in (8, 16, 32) for Ng in (640, 616)
+                for M in (4096, 2048)}
 # The programs whose BA iteration the C source computes (ba_solve's _xla).
 PROGRAMS = ("init", "chain")
 _UNMEASURED: set = set()
@@ -81,13 +92,13 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def schur_block(D: int, K: int) -> int:
-    """The Schur product's block length for a [D, K] x [K, D] product
-    (``_SCHUR_BLOCKS``; one chain for a shape outside the table, with one
-    warning)."""
+def schur_block(D: int, K: int) -> tuple:
+    """The Schur product's ``(block length, lanes)`` for a [D, K] x [K, D]
+    product (``_SCHUR_BLOCKS``; one chain for a shape outside the table, with
+    one warning)."""
     block = _SCHUR_BLOCKS.get((D, K))
     if block is None:
-        block = K
+        block = (K, 1)
         if (D, K) not in _UNMEASURED:
             _UNMEASURED.add((D, K))
             _log.warning(
@@ -134,13 +145,29 @@ def update_layout(D: int) -> tuple:
     return layout
 
 
+@contextlib.contextmanager
+def unmeasured_shapes():
+    """Record the shapes met outside the tables within the block: yields a
+    set, filled on exit. The warnings fire once a shape per process, so the
+    block starts from an empty record (``_UNMEASURED``) and puts the earlier
+    one back after."""
+    met: set = set()
+    saved = set(_UNMEASURED)
+    _UNMEASURED.clear()
+    try:
+        yield met
+    finally:
+        met |= _UNMEASURED
+        _UNMEASURED.update(saved)
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = host_c.load(SOURCE)
             lib.ba_normal_cpu.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [
-                ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
             lib.ba_normal_cpu.restype = ctypes.c_int
             lib.ba_update_cpu.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
@@ -149,7 +176,7 @@ def _load():
             lib.ba_chi2_cpu.restype = None
             lib.ba_orthonormalize_cpu.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
             lib.ba_orthonormalize_cpu.restype = None
-            lib.ba_schur_cpu.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+            lib.ba_schur_cpu.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
             lib.ba_schur_cpu.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -208,7 +235,7 @@ def normal_equations(camera, prob, cam_pose, lm_pos, obs_live, free, *, policy: 
            _c(prob.obs_uv), _c(prob.obs_xr), _c(prob.obs_inv_sigma_sq),
            _c(obs_live, torch.uint8), _c(free, torch.uint8)]
     p = host_c.ptr
-    rc = _load().ba_normal_cpu(C, M, O // C, *(p(x) for x in ins), schur_block(D, 3 * M),
+    rc = _load().ba_normal_cpu(C, M, O // C, *(p(x) for x in ins), *schur_block(D, 3 * M),
                                grid_block(C, O // C, M), p(S), p(rhs), p(Hinv), p(W), p(bl),
                                p(obs_tr), p(lm_tr), p(cam_tr))
     if rc != 0:

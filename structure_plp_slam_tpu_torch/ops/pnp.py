@@ -42,7 +42,7 @@ def pnp_dlt(points_w, bearings):
     U, D, Vt2 = linalg.svd(M)
     sgn = torch.sign(linalg.det3(U) * linalg.det3(Vt2))
     diag = torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
-    R = U @ (diag[..., :, None] * Vt2)
+    R = linalg.matmul(U * diag[..., None, :], Vt2)
     scale = torch.sum(D * diag, dim=-1) / 3.0
     safe_scale = torch.where(torch.abs(scale) < 1e-12, torch.full_like(scale, 1e-12), scale)
     return R, P[..., 3] / safe_scale[..., None]
@@ -57,7 +57,7 @@ def pnp_ransac(camera, points_w, uv, inv_sigma_sq, valid, key, *,
     bx = (uv[:, 0] - camera.cx) / camera.fx
     by = (uv[:, 1] - camera.cy) / camera.fy
     b = torch.stack([bx, by, torch.ones_like(bx)], dim=-1)
-    b = b / torch.linalg.norm(b, dim=-1, keepdim=True)
+    b = b / linalg.norm(b)[:, None]
 
     idx = sample_minimal_sets(key, num_hypotheses, 6, N, valid)
     R, t = pnp_dlt(points_w[idx], b[idx])

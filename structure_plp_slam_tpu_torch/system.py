@@ -1294,8 +1294,8 @@ class System:
     def _record_frame(self, ts: float) -> np.ndarray:
         R, t = self.pose
         kf_pose = self._state.kf_pose[self.ref_kf]
-        R_rel = R @ kf_pose[:, :3].T
-        t_rel = t - R_rel @ kf_pose[:, 3]
+        R_rel = linalg.matmul(R, kf_pose[:, :3].T)
+        t_rel = t - linalg.matvec(R_rel, kf_pose[:, 3])
         both = torch.stack([torch.cat([R, t[:, None]], 1),
                             torch.cat([R_rel, t_rel[:, None]], 1)]).cpu().numpy()
         self._frame_stats.append((ts, self.ref_kf, both[1], False))

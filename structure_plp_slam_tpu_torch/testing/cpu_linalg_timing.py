@@ -42,6 +42,11 @@ runs on the CPU. Prints one JSON object per measurement, the median of
   the main path's RGB-D System (focal_x_baseline 40, numpy seed 42's
   sequence at 0.06 m a frame), whose window's observations carry stereo
   rows from the depth (the C source's 3-row arithmetic on the CPU);
+* ``chain_ba_c16_320x240``: the local BA of the first keyframe chain of the
+  tier-1 tests' RGB-D System (320x240, 600 keypoints over 4 levels,
+  focal_x_baseline 26, numpy seed 42's sequence, 8 keyframes and 4096
+  landmarks): a window of 16 cameras, the C source's 16-camera layout on
+  the CPU;
 * ``match_stereo_640x480``, ``match_stereo_752x480`` and
   ``match_stereo_1241x376``: the stereo frontend's ``match_stereo`` on one
   rendered pair (numpy seed 0) at the 640x480 main path's camera (0.1 m
@@ -186,15 +191,25 @@ def init_ba_640(repeats: int) -> dict:
     return dict(name="init_ba_640x480", seconds=statistics.median(per_run[1:]))
 
 
-def _first_chain_call(owner, name: str, want, rgbd: bool = False):
+def _first_chain_call(owner, name: str, want, rgbd: bool = False, small: bool = False):
     """The first call of ``owner.name`` that ``want(kwargs)`` accepts, in
     the monocular System at 640x480 (1000 keypoints over 8 levels, numpy
     seed 42's sequence, 32 keyframes), or with ``rgbd`` in the RGB-D System
-    of the main path's camera: ``(the function, args, kwargs)``."""
-    depth = dict(focal_x_baseline=40.0, depth_threshold=40.0, depthmap_factor=1.0) if rgbd else {}
+    of the main path's camera, or with ``small`` too in the tier-1 tests'
+    RGB-D System (320x240, 600 keypoints over 4 levels, 8 keyframes and 4096
+    landmarks): ``(the function, args, kwargs)``."""
+    depth = dict(focal_x_baseline=26.0 if small else 40.0,
+                 depth_threshold=400.0 if small else 40.0, depthmap_factor=1.0) if rgbd else {}
+    if small:
+        intr = dict(cols=320, rows=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
+        orb, sizes = dict(max_num_keypts=600, num_levels=4), dict(max_keyframes=8,
+                                                                   max_landmarks=4096)
+    else:
+        intr = dict(cols=640, rows=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5)
+        orb, sizes = dict(max_num_keypts=1000, num_levels=8), dict(max_keyframes=32,
+                                                                   max_landmarks=8192)
     cam = Camera(name="b", setup=CameraSetup.RGBD if rgbd else CameraSetup.MONOCULAR,
-                 model=CameraModel.PERSPECTIVE, cols=640, rows=480, fx=525.0, fy=525.0,
-                 cx=319.5, cy=239.5, fps=30.0, **depth)
+                 model=CameraModel.PERSPECTIVE, fps=30.0, **intr, **depth)
     frames, _ = synthetic_scene.make_sequence(np.random.default_rng(42), cam, 12,
                                               step=0.06 if rgbd else 0.08)
     fn = getattr(owner, name)
@@ -207,10 +222,8 @@ def _first_chain_call(owner, name: str, want, rgbd: bool = False):
 
     setattr(owner, name, record)
     try:
-        slam = system_mod.System(
-            Config(camera=cam, orb=OrbParams(max_num_keypts=1000, num_levels=8), raw={}),
-            device="cpu", enable_loop_closing=False, max_keyframes=32, max_landmarks=8192,
-            max_kf_interval=3)
+        slam = system_mod.System(Config(camera=cam, orb=OrbParams(**orb), raw={}), device="cpu",
+                                 enable_loop_closing=False, max_kf_interval=3, **sizes)
         slam.startup()
         for img, depth, ts in frames:
             if rgbd:
@@ -251,6 +264,13 @@ def kf_chain_rgbd(repeats: int) -> dict:
                                     rgbd=True)
     return dict(name="kf_chain_rgbd_640x480", slot=int(a[2]),
                 seconds=_median_seconds(lambda: chain(*a, **k), repeats))
+
+
+def chain_ba_c16(repeats: int) -> dict:
+    local_ba, a, k = _first_chain_call(system_mod.mapper, "local_ba",
+                                       lambda k: k.get("return_cams"), rgbd=True, small=True)
+    return dict(name="chain_ba_c16_320x240", slot=int(a[2]),
+                seconds=_median_seconds(lambda: local_ba(*a, **k), repeats))
 
 
 # (name, cols, rows, fx, focal_x_baseline, keypoints, slots): the main
@@ -315,7 +335,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     torch.set_num_threads(args.threads)
     for measure in (global_ba_iter, mono_init, track_frame_320, track_frame_640, init_ba_640,
-                    chain_ba_640, kf_chain_640, chain_ba_rgbd, kf_chain_rgbd,
+                    chain_ba_640, kf_chain_640, chain_ba_rgbd, kf_chain_rgbd, chain_ba_c16,
                     match_stereo_640, match_stereo_752,
                     match_stereo_1241):
         if args.only and measure.__name__ not in args.only:

@@ -5,6 +5,7 @@ levels). The op-level tests feed the same inputs and keys to both
 packages:
 
 * BoW scores bit-equal (integer counts over a count);
+* ``pnp_dlt`` on random minimal sets: bit-equal;
 * ``pnp_ransac`` on the same minimal sets (``utils/prng``): pose within
   1e-4, inlier masks equal;
 * ``Relocalizer.relocalize`` on the JAX System's map (carried across with
@@ -15,7 +16,10 @@ packages:
 
 System level: ``tests/test_loop_system.py``'s blackout (8 frames, two
 black frames, frame 4 again) on both Systems: LOST after the black
-frames, TRACKING after, frame poses within 1e-3; a kidnapped camera
+frames, TRACKING after, the frame trajectory equal (on the CPU the port
+computes what XLA:CPU compiles, the 16-camera local BA window of its 8
+keyframes too, ROADMAP C18) and no shape outside ``ops/ba_cpu``'s tables;
+a kidnapped camera
 (frame 4 again, turned upside down) that only the relocalizer recovers,
 on both Systems: one relocalization each, poses within 1e-3; and a port
 System that grows from small capacities matches one started at the
@@ -48,6 +52,7 @@ from structure_plp_slam_tpu_torch.data import bow as tbow
 from structure_plp_slam_tpu_torch.data import map_database as tmdb
 from structure_plp_slam_tpu_torch.data import map_state as tms
 from structure_plp_slam_tpu_torch.models import relocalizer as treloc
+from structure_plp_slam_tpu_torch.ops import ba_cpu
 from structure_plp_slam_tpu_torch.ops import fused_match as tfm
 from structure_plp_slam_tpu_torch.ops import pnp as tpnp
 from structure_plp_slam_tpu_torch.ops.orb import OrbParams
@@ -151,6 +156,22 @@ def test_pnp_ransac_parity():
     np.testing.assert_allclose(Rt.numpy(), R, atol=2e-2)
 
 
+def test_pnp_dlt_bit_equal():
+    """The 6-point DLT on 256 random minimal sets: on the CPU the port's
+    rotations and translations are the JAX package's bit for bit (XLA:CPU's
+    LAPACK SVDs, its 3x3 dot for the nearest rotation)."""
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-3, 3, (256, 6, 3)).astype(np.float32)
+    pts[..., 2] += 6.0
+    b = rng.normal(size=(256, 6, 3)).astype(np.float32)
+    b[..., 2] = np.abs(b[..., 2]) + 3.0
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    Rj, tj = jpnp.pnp_dlt(jnp.asarray(pts), jnp.asarray(b))
+    Rt, tt = tpnp.pnp_dlt(_T(pts), _T(b))
+    np.testing.assert_array_equal(Rt.numpy(), np.asarray(Rj))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+
+
 def test_relocalize_parity():
     js, arrays, feats = jax_map()
     key = jax.random.PRNGKey(11)
@@ -238,11 +259,16 @@ def _blackout(slam, frames, shown, black_ts, turn=False):
     return lost, slam.tracking_state
 
 
+# The shapes outside ops/ba_cpu's tables each port run met.
+UNMEASURED = {}
+
+
 @functools.lru_cache(maxsize=None)
 def run_blackout(package):
     slam = _jax_system() if package == "jax" else _port_system()
     tfm.reset_counts()
-    lost, end = _blackout(slam, _frames()[0][:8], 4, 0.4)
+    with ba_cpu.unmeasured_shapes() as UNMEASURED[("blackout", package)]:
+        lost, end = _blackout(slam, _frames()[0][:8], 4, 0.4)
     return slam, lost.value, end.value, tfm.fused_match.calls
 
 
@@ -253,7 +279,13 @@ def test_blackout_systems_agree():
     assert end_t == end_j == "Tracking"
     assert ts.num_relocalizations == js.num_relocalizations
     assert ts.next_kf == js.next_kf
-    _assert_trajectories_agree(js.frame_trajectory(), ts.frame_trajectory(), 1e-3)
+    assert ts.num_keyframes == js.num_keyframes
+    assert ts.num_landmarks == js.num_landmarks
+    tj, tt = js.frame_trajectory(), ts.frame_trajectory()
+    assert [t for t, _ in tj] == [t for t, _ in tt]
+    for (t, Pj), (_, Pt) in zip(tj, tt):
+        assert np.array_equal(Pj, Pt), f"t={t}: {np.abs(Pj - Pt).max():.2e}"
+    assert not UNMEASURED[("blackout", "port")], UNMEASURED[("blackout", "port")]
     # The re-shown frame 4 sits where the camera was.
     R_gt, t_gt = _frames()[1][4]
     P = ts.frame_trajectory()[-1][1]

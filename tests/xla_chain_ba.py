@@ -11,8 +11,9 @@ module gives the tests their JAX side and regenerates the evidence:
 
     JAX_PLATFORMS=cpu python -m tests.xla_chain_ba [--dump DIR]
 
-prints the Schur product's block length at the chain's shape (``SHAPES``)
-and the grid contraction's run lengths (``GRID_SHAPES``), the entries of
+prints the Schur product's block layout at the chain's shapes (``SHAPES``,
+``TIER1_SHAPES``) and the grid contraction's run lengths (``GRID_SHAPES``,
+``TIER1_GRID_SHAPES``), the entries of
 ``_SCHUR_BLOCKS`` and ``_GRID_BLOCKS`` in ops/ba_cpu.py, and raises if the
 port's Schur product does not give XLA's dot on random rows of every seed.
 With ``--dump DIR`` it first runs the JAX System at 640x480 to its first
@@ -40,6 +41,12 @@ SHAPES = ((192, 12288),)
 # (C, Ng, M) of the grid contraction: the init's and the chain's windows at
 # 640x480 (obs_cap 640) and 320x240 (616 keypoint slots).
 GRID_SHAPES = ((8, 640, 4096), (32, 640, 4096), (8, 616, 4096), (32, 616, 4096))
+# The shapes the other tier-1 Systems and chip paths reach: the window of C =
+# 16 cameras that max_keyframes 8 gives, and the growth maps' M = 2048
+# landmark slots (test_torch_chain_ba_xla_c16.py holds them).
+TIER1_SHAPES = ((96, 12288), (96, 6144), (48, 6144), (192, 6144))
+TIER1_GRID_SHAPES = ((16, 616, 4096), (16, 640, 4096), *(
+    (C, Ng, 2048) for C in (8, 16, 32) for Ng in (616, 640)))
 _BIG = np.float32(2.0 ** 40)
 
 # The monocular Systems the tests take their chains from: test_torch_mono.py's
@@ -106,8 +113,8 @@ def measure() -> dict:
     """``{"schur": {(D, K): block}, "grid": {(C, Ng, M): run}}``; raises
     unless the port's Schur product with the measured block gives XLA's dot
     on random rows (``tests/xla_init_ba.measure``)."""
-    return {"schur": xo.measure(SHAPES),
-            "grid": {shape: probe_grid_block(*shape) for shape in GRID_SHAPES}}
+    return {"schur": xo.measure(SHAPES + TIER1_SHAPES),
+            "grid": {shape: probe_grid_block(*shape) for shape in GRID_SHAPES + TIER1_GRID_SHAPES}}
 
 
 def _raise_stack() -> None:
@@ -176,7 +183,8 @@ def setup_frames(setup: str, width: int, seed: int, num_frames: int):
     return pairs
 
 
-def chain_call(width: int = 320, seed: int = 42, num_frames: int = 8, setup: str = "mono"):
+def chain_call(width: int = 320, seed: int = 42, num_frames: int = 8, setup: str = "mono",
+               max_keyframes: int | None = None):
     """The JAX System's first keyframe chain with a local BA (after its
     monocular init; or after the RGB-D or stereo System's first keyframe)
     on ``width``'s camera and capacities (``WIDTHS``; ``setup_camera``) and
@@ -186,7 +194,9 @@ def chain_call(width: int = 320, seed: int = 42, num_frames: int = 8, setup: str
     inverse sigmas, indicator; as numpy) and static keywords ``kw`` of its
     first half, ``ba_in`` (the state the second half, which runs the local
     BA, starts from) and ``out`` (the second half's state, next landmark
-    slot, next plane, next line and indicator)."""
+    slot, next plane, next line and indicator). ``max_keyframes`` replaces
+    the width's keyframe capacity: 8 gives the tier-1 Systems' window of C
+    = 16 cameras."""
     _raise_stack()
     import structure_plp_slam_tpu.system as jsys
     from structure_plp_slam_tpu.config import Config as JConfig
@@ -205,7 +215,10 @@ def chain_call(width: int = 320, seed: int = 42, num_frames: int = 8, setup: str
                           _host(out)))
         return out
 
-    js = jsys.System(JConfig(camera=jcam, orb=JOrb(**cfg["orb"]), raw={}), **cfg["sizes"],
+    sizes = dict(cfg["sizes"])
+    if max_keyframes is not None:
+        sizes["max_keyframes"] = max_keyframes
+    js = jsys.System(JConfig(camera=jcam, orb=JOrb(**cfg["orb"]), raw={}), **sizes,
                      max_kf_interval=3, enable_loop_closing=False)
     feed = {"mono": lambda f: js.feed_monocular_frame(f[0], f[2]),
             "rgbd": lambda f: js.feed_RGBD_frame(*f),
@@ -428,6 +441,9 @@ def main(argv=None) -> None:
                     help="the System whose chain --dump runs (default: mono)")
     ap.add_argument("--width", type=int, choices=sorted(WIDTHS), default=640,
                     help="its camera and capacities (default: 640)")
+    ap.add_argument("--max-keyframes", type=int,
+                    help="its keyframe capacity instead of the width's (8: a window of C = 16 "
+                         "cameras, as the tier-1 Systems build)")
     a = ap.parse_args(argv)
     if a.dump is not None:
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
@@ -437,7 +453,7 @@ def main(argv=None) -> None:
 
     jax.config.update("jax_platforms", "cpu")
     if a.dump is not None:
-        chain_call(a.width, seed=0, setup=a.setup)
+        chain_call(a.width, seed=0, setup=a.setup, max_keyframes=a.max_keyframes)
         xo.list_fused_multiply_adds(a.dump, module="jit__kf_chain")
     print(f"# jaxlib {jaxlib.__version__}, {platform.machine()} {platform.processor()}, "
           f"{os.cpu_count()} CPUs")

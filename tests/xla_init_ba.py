@@ -8,7 +8,7 @@ regenerates the evidence the C source was written from:
 
     JAX_PLATFORMS=cpu python -m tests.xla_init_ba [--dump DIR]
 
-prints the Schur product's block length (``_SCHUR_BLOCKS`` in
+prints the Schur product's block layout (``_SCHUR_BLOCKS`` in
 ops/ba_cpu.py), probed on XLA's dot at every shape of ``SHAPES``, and raises
 if the port's Schur product does not give XLA's dot on random rows of every
 seed. With ``--dump DIR`` it first runs the JAX System to its 320x240
@@ -45,13 +45,31 @@ def _schur_dot():
                                                 precision=lax.Precision.HIGHEST))
 
 
-def probe_schur_block(D: int, K: int) -> int:
-    """The length of the consecutive blocks XLA's ``[D, K] x [K, D]`` dot
-    sums apart. Row r carries products +2^40 at k = 0 and -2^40 at k = j,
-    every other product 1: XLA returns K - 1 - j while 0 and j share a
-    chain (the ones after j survive the cancellation), and the ones of the
-    blocks after j's once they do not. Raises unless every probe fits
-    blocks of one length."""
+def _schur_response(D: int, K: int, block: int, lanes: int) -> np.ndarray:
+    """What ``probe_schur_block``'s rows return for every j >= 1 if XLA's dot
+    sums K in consecutive blocks of ``block``, each in ``lanes`` interleaved
+    lanes (entry k of the first block in lane k % lanes), each lane a chain
+    from its first entry, the lanes and then the blocks added in order: the
+    ones of the cancelled lane after j, of the lanes added after the
+    cancellation and of the blocks after j's survive; the rest meet 2^40."""
+    j = np.arange(1, K)
+    n0 = min(block, K)
+    size = np.array([(n0 - lane + lanes - 1) // lanes for lane in range(lanes)])
+    after = np.concatenate([np.cumsum(size[::-1])[::-1][1:], [0]])  # lanes after each
+    rest = K - n0
+    lane = j % lanes
+    first = np.where(lane == 0, size[0] - (j // lanes + 1) + after[0], after[lane]) + rest
+    later = np.maximum(K - (j // block + 1) * block, 0)
+    return np.where(j < block, first, later)
+
+
+def probe_schur_block(D: int, K: int) -> tuple:
+    """The ``(block length, lanes)`` of XLA's ``[D, K] x [K, D]`` dot: it sums
+    K in consecutive blocks of that length, each block in that many
+    interleaved lanes (``_schur_response``). Row r carries products +2^40 at
+    k = 0 and -2^40 at k = j, every other product 1: the ones that never
+    share a partial sum with 2^40 survive the cancellation. Raises unless
+    the probes fit exactly one layout."""
     f = _schur_dot()
     res = np.zeros(K, np.int64)
     ones = np.ones((K, D), np.float32)
@@ -62,12 +80,14 @@ def probe_schur_block(D: int, K: int) -> int:
             a[r, 0], a[r, j] = _BIG, -_BIG
         out = np.asarray(f(a, ones))[:, 0]
         res[js] = out[:len(js)].astype(np.int64)
-    block = next((j for j in range(1, K) if res[j] != K - 1 - j), K)
-    want = [K - 1 - j if j < block else K - (j // block + 1) * block for j in range(1, K)]
-    want = [max(w, 0) for w in want]
-    if list(res[1:]) != want:
-        raise RuntimeError(f"XLA's [{D}, {K}] dot does not sum blocks of {block}")
-    return block
+    # A block boundary j starts the second block: the response steps there
+    # to K - 2 j.
+    starts = [j for j in range(1, K) if res[j] == max(K - 2 * j, 0) and res[j - 1] != res[j]]
+    fits = [(block, lanes) for lanes in (1, 2, 4, 8, 16) for block in (*starts, K)
+            if np.array_equal(res[1:], _schur_response(D, K, block, lanes))]
+    if len(fits) != 1:
+        raise RuntimeError(f"XLA's [{D}, {K}] dot fits {len(fits)} block layouts: {fits}")
+    return fits[0]
 
 
 def random_rows(M: int, C: int, seed: int):
@@ -101,7 +121,7 @@ def port_schur(WH, W):
     M, C = W.shape[:2]
     WH, W = (np.ascontiguousarray(x, dtype=np.float32) for x in (WH, W))
     Sr = np.empty((6 * C, 6 * C), dtype=np.float32)
-    rc = ba_cpu._load().ba_schur_cpu(C, M, ba_cpu.schur_block(6 * C, 3 * M), WH.ctypes.data,
+    rc = ba_cpu._load().ba_schur_cpu(C, M, *ba_cpu.schur_block(6 * C, 3 * M), WH.ctypes.data,
                                      W.ctypes.data, None, Sr.ctypes.data)
     if rc != 0:
         raise RuntimeError(f"ba_schur_cpu returned {rc}")
@@ -109,8 +129,9 @@ def port_schur(WH, W):
 
 
 def measure(shapes=SHAPES, seeds=SEEDS) -> dict:
-    """``{(D, K): block}``; raises unless the port's Schur product with the
-    measured block gives XLA's dot on the random rows of every seed."""
+    """``{(D, K): (block, lanes)}``; raises unless the port's Schur product
+    with the measured layout gives XLA's dot on the random rows of every
+    seed."""
     from structure_plp_slam_tpu_torch.ops import ba_cpu
 
     table = {}
